@@ -24,6 +24,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+#: flags of one kernel on top of NVCC_FLAGS.  The formal solution is built
+#: without FMA contraction, so that each of its products rounds as in the
+#: plain version: its weights w1 = w0 - tau e and w2 = 2 w1 - tau^2 e
+#: cancel, and the reference's gap-0 wrap divides by the surface tau, so a
+#: fused product there moves I_nu far beyond one rounding.
+KERNEL_FLAGS = {"formal_solution": ("-fmad=false",)}
 
 _LIBS: dict = {}
 #: compiler report (ptxas registers / spills) of each kernel built by this
@@ -46,14 +52,13 @@ def load(name: str) -> ctypes.CDLL:
     if name in _LIBS:
         return _LIBS[name]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    flags = (*NVCC_FLAGS, *KERNEL_FLAGS.get(name, ()))
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(

@@ -1,4 +1,5 @@
-from .base import AtomData, Table, einstein_a_from_f_lu
+from .base import AtomData, MoleculeData, Table, einstein_a_from_f_lu
 from .builtin import build_builtin_atom_data
 
-__all__ = ["AtomData", "Table", "build_builtin_atom_data", "einstein_a_from_f_lu"]
+__all__ = ["AtomData", "MoleculeData", "Table", "build_builtin_atom_data",
+           "einstein_a_from_f_lu"]

@@ -16,12 +16,19 @@ equal length.
                         wavelength_cm
 * ``linelist_atoms``  : VALD-style linelist (wavelength [AA], log_gf,
                         e_low/e_up [eV], j_lo/j_up, rad/stark/waals)
+* ``linelist_molecules`` : the same for molecular lines, with a
+                        ``molecule`` name column instead of atomic_number /
+                        ion_charge
+* ``molecule_data``   : ``MoleculeData``, Barklem & Collet 2016-layout
+                        molecular tables
 
-Molecular tables (ROADMAP Queue 1, "molecules") and HDF files and
-downloads ("other inputs") are not ported yet.
+HDF files and downloads ("other inputs", ROADMAP Queue 1) are not ported
+yet.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -65,15 +72,44 @@ def einstein_a_from_f_lu(nu, g_lower, g_upper, f_lu):
     return coeff * nu**2 * (g_lower / g_upper) * f_lu
 
 
+@dataclasses.dataclass
+class MoleculeData:
+    """Molecular tables in the Barklem & Collet 2016 layout; the JAX
+    package's DataFrames as arrays, rows in ``names`` order.
+
+    names : [M] molecule names
+    equilibrium_temperatures : [Te] sample temperatures [K]
+    log_equilibrium_constants : [M, Te] log10 of the pressure equilibrium
+        constant in Pa
+    partition_temperatures : [Tp] sample temperatures [K]
+    partition_functions : [M, Tp] U(T)
+    ion1, ion2 : [M] constituent symbols ('H', 'H+', ...)
+    dissociation_energies : [M] eV
+    """
+
+    names: list
+    equilibrium_temperatures: np.ndarray
+    log_equilibrium_constants: np.ndarray
+    partition_temperatures: np.ndarray
+    partition_functions: np.ndarray
+    ion1: list
+    ion2: list
+    dissociation_energies: np.ndarray
+
+
 class AtomData:
     def __init__(self, atom_data: Table, ionization_data: Table,
                  levels: Table, lines: Table,
-                 linelist_atoms: Table | None = None):
+                 linelist_atoms: Table | None = None,
+                 linelist_molecules: Table | None = None,
+                 molecule_data: MoleculeData | None = None):
         self.atom_data = atom_data
         self.ionization_data = ionization_data
         self.levels = levels
         self.lines = lines
         self.linelist_atoms = linelist_atoms
+        self.linelist_molecules = linelist_molecules
+        self.molecule_data = molecule_data
         self.selected_atomic_numbers = np.asarray(
             atom_data.atomic_number, dtype=np.int64
         )

@@ -23,17 +23,17 @@ Documented divergence: the level/line tables are NIST/VALD transcriptions
 of the strongest contributors, not the full kurucz_cd23_chianti dataset.
 
 This is the NumPy port of ``stardis_tpu/atom_data/builtin.py``: the same
-tables in the same row order, without the molecular tables (ROADMAP Queue 1,
-"molecules").
+tables in the same row order, including the molecular tables built from
+Huber & Herzberg spectroscopic constants (``build_molecule_data_hh``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .base import AtomData, Table, einstein_a_from_f_lu
-from ..constants import AMU_CGS, C_CGS, EV_TO_ERG, H_CGS
-from ..util.species import ATOMIC_WEIGHTS_AMU, ELEMENT_SYMBOLS
+from .base import AtomData, MoleculeData, Table, einstein_a_from_f_lu
+from ..constants import AMU_CGS, C_CGS, EV_TO_ERG, H_CGS, K_B_CGS
+from ..util.species import ATOMIC_WEIGHTS_AMU, ELEMENT_SYMBOLS, SYMBOL_TO_Z
 
 CHI_H_EV = 13.598434005136  # NIST H I ionization energy [eV]
 
@@ -173,6 +173,7 @@ def build_builtin_atom_data(
     h_n_max: int = 20,
     he_ii_n_max: int = 8,
     include_linelists: bool = False,
+    include_molecules: bool = False,
 ) -> AtomData:
     """Generate the built-in atomic dataset.
 
@@ -183,6 +184,8 @@ def build_builtin_atom_data(
     he_ii_n_max : highest He II principal quantum number.
     include_linelists : also attach a VALD-style ``linelist_atoms`` built
         from the hydrogen lines plus the transcribed solar metal lines.
+    include_molecules : also attach the molecular tables
+        (``build_molecule_data_hh``).
     """
     zs = [z for z in range(1, max_atomic_number + 1) if z in NIST_IONIZATION_EV]
 
@@ -306,5 +309,159 @@ def build_builtin_atom_data(
         )
 
     return AtomData(
-        atom_data, ionization_data, levels, lines, linelist_atoms=linelist_atoms
+        atom_data, ionization_data, levels, lines, linelist_atoms=linelist_atoms,
+        molecule_data=build_molecule_data_hh() if include_molecules else None,
+    )
+
+
+# Ground-electronic-state spectroscopic constants of the spectrally
+# dominant diatomics, Huber & Herzberg (1979, "Constants of Diatomic
+# Molecules"): omega_e / omega_e x_e / B_e in cm^-1; D0 in eV; sigma the
+# homonuclear symmetry factor; g_el = (2S+1)*(2 - delta_{Lambda,0}) of the
+# ground term.
+DIATOMIC_CONSTANTS_HH = {
+    # name: (ion1, ion2, omega_e, omega_e x_e, B_e, sigma, g_el, D0_eV)
+    "H2": ("H", "H", 4401.21, 121.34, 60.853, 2, 1, 4.4781),  # X 1Sg+
+    "CO": ("C", "O", 2169.81, 13.29, 1.9313, 1, 1, 11.092),   # X 1S+
+    "CH": ("C", "H", 2858.5, 63.0, 14.457, 1, 4, 3.465),      # X 2Pi
+    "OH": ("O", "H", 3737.76, 84.88, 18.91, 1, 4, 4.392),     # X 2Pi
+    "MgH": ("Mg", "H", 1495.20, 31.89, 5.8257, 1, 2, 1.285),  # X 2S+
+    "C2": ("C", "C", 1854.71, 13.34, 1.8198, 2, 1, 6.21),     # X 1Sg+
+    "O2": ("O", "O", 1580.19, 11.98, 1.44563, 2, 3, 5.1156),  # X 3Sg-
+    "N2": ("N", "N", 2358.57, 14.32, 1.99824, 2, 1, 9.759),   # X 1Sg+
+    "CN": ("C", "N", 2068.59, 13.09, 1.8997, 1, 2, 7.76),     # X 2S+
+    "SiO": ("Si", "O", 1241.54, 5.97, 0.7267, 1, 1, 8.26),    # X 1S+
+    # H2+ = H + H+ in the same table convention
+    "H2+": ("H", "H+", 2321.7, 66.2, 30.21, 2, 2, 2.6508),    # X 2Sg+
+}
+
+# Low-lying excited electronic states that contribute to the molecular
+# partition function below ~10,000 K (Huber & Herzberg 1979):
+# name -> list of (T_e, g_el, omega_e, omega_e x_e, B_e).
+DIATOMIC_EXCITED_STATES_HH = {
+    "C2": [(716.24, 6, 1641.35, 11.67, 1.6324)],   # a 3Pi_u
+    "O2": [(7918.1, 2, 1483.5, 12.9, 1.4264),      # a 1Delta_g
+           (13195.1, 1, 1432.77, 14.0, 1.40037)],  # b 1Sigma_g+
+    "CN": [(9245.28, 4, 1812.56, 12.61, 1.7151)],  # A 2Pi_i
+}
+
+#: temperature grid of the generated molecular tables [K]
+MOLECULE_TABLE_TEMPS = np.array(
+    [1000.0, 1500.0, 2000.0, 3000.0, 4000.0, 5000.0, 6000.0, 8000.0,
+     10000.0, 15000.0, 20000.0]
+)
+
+
+def diatomic_partition_function(temps, omega_e, omega_e_xe, b_e, sigma,
+                                g_el, d0_ev):
+    """Ground-state vib-rot partition function by direct level sums:
+    U = g_el sum_v exp(-G(v)/kT) (1/sigma) sum_J (2J+1) exp(-F(J)/kT),
+    G(v) Morse-like from v = 0, F(J) = B_e J(J+1) rigid rotor, both
+    truncated at the dissociation limit."""
+    temps = np.atleast_1d(np.asarray(temps, dtype=float))
+    kt_cm = K_B_CGS * temps / (H_CGS * C_CGS)  # kT in cm^-1
+    d0_cm = d0_ev * EV_TO_ERG / (H_CGS * C_CGS)
+
+    v_top = int(np.floor(omega_e / (2.0 * omega_e_xe) - 0.5))
+    v = np.arange(0, max(v_top, 1) + 1)
+    g_v = omega_e * (v + 0.5) - omega_e_xe * (v + 0.5) ** 2
+    g_v = g_v - g_v[0]
+    keep = (g_v >= 0) & (g_v < d0_cm)
+    g_v = g_v[keep]
+    u_vib = np.exp(-g_v[None, :] / kt_cm[:, None]).sum(axis=1)
+
+    j_top = int(np.floor(np.sqrt(max(d0_cm, b_e) / b_e)))
+    j = np.arange(0, j_top + 1)
+    f_j = b_e * j * (j + 1.0)
+    f_j = f_j[f_j < d0_cm]
+    u_rot = (
+        (2.0 * j[: len(f_j)] + 1.0)[None, :]
+        * np.exp(-f_j[None, :] / kt_cm[:, None])
+    ).sum(axis=1) / sigma
+    return g_el * u_vib * u_rot
+
+
+def diatomic_partition_function_multistate(temps, name):
+    """U summed over the ground state and DIATOMIC_EXCITED_STATES_HH[name]
+    (each weighted by exp(-T_e/kT), its ladder truncated at D0 - T_e)."""
+    temps = np.atleast_1d(np.asarray(temps, dtype=float))
+    _i1, _i2, we, wexe, be, sigma, g_el, d0 = DIATOMIC_CONSTANTS_HH[name]
+    u = diatomic_partition_function(temps, we, wexe, be, sigma, g_el, d0)
+    cm_to_ev = H_CGS * C_CGS / EV_TO_ERG
+    kt_cm = K_B_CGS * temps / (H_CGS * C_CGS)
+    for te, g_e, we_e, wexe_e, be_e in DIATOMIC_EXCITED_STATES_HH.get(name, []):
+        d0_rem = d0 - te * cm_to_ev
+        if d0_rem <= 0:
+            continue
+        u = u + np.exp(-te / kt_cm) * diatomic_partition_function(
+            temps, we_e, wexe_e, be_e, sigma, g_e, d0_rem
+        )
+    return u
+
+
+def _atomic_u(symbol, temps):
+    """Atomic/ionic partition function from the builtin NIST tables ('H+'
+    style trailing charge marks an ion; a bare proton has U = 1)."""
+    from .nist_levels import NIST_METAL_LEVELS_EV
+
+    temps = np.atleast_1d(np.asarray(temps, dtype=float))
+    charge = len(symbol) - len(symbol.rstrip("+"))
+    symbol = symbol.rstrip("+")
+    z = SYMBOL_TO_Z[symbol]
+    if z == 1 and charge == 1:
+        levels = [(0.0, 1)]  # bare proton
+    elif z == 1:
+        levels = [(0.0, 2)]  # excited H negligible below ~12,000 K
+    elif z == 2 and charge == 0:
+        levels = HE_I_LEVELS_EV
+    else:
+        levels = NIST_METAL_LEVELS_EV.get(
+            (z, charge), [(0.0, GROUND_G.get(z, [1])[charge]
+                           if charge < len(GROUND_G.get(z, [1])) else 1)]
+        )
+    e = np.array([lv[0] for lv in levels]) * EV_TO_ERG
+    g = np.array([lv[1] for lv in levels], dtype=float)
+    return (g[None, :] * np.exp(-e[None, :] / (K_B_CGS * temps[:, None]))
+            ).sum(axis=1)
+
+
+def build_molecule_data_hh(names=None, temps=None) -> MoleculeData:
+    """Molecular tables in the Barklem & Collet 2016 layout (log10 K_p [Pa]
+    and U_AB against T, constituents and D0) from the Huber & Herzberg
+    constants:
+
+    K_n = (2 pi mu k T / h^2)^{3/2} (U_A U_B / U_AB) exp(-D0/kT),
+    K_p[Pa] = K_n k T / 10.
+    """
+    temps = MOLECULE_TABLE_TEMPS if temps is None else np.asarray(temps)
+    names = list(DIATOMIC_CONSTANTS_HH) if names is None else list(names)
+
+    log_kp, u_mol, ion1s, ion2s, d0s = [], [], [], [], []
+    for name in names:
+        ion1, ion2, we, wexe, be, sigma, g_el, d0 = DIATOMIC_CONSTANTS_HH[name]
+        u_ab = diatomic_partition_function_multistate(temps, name)
+        m1 = ATOMIC_WEIGHTS_AMU[SYMBOL_TO_Z[ion1.rstrip("+")]]
+        m2 = ATOMIC_WEIGHTS_AMU[SYMBOL_TO_Z[ion2.rstrip("+")]]
+        mu = m1 * m2 / (m1 + m2) * AMU_CGS
+        lam = (2 * np.pi * mu * K_B_CGS * temps / H_CGS**2) ** 1.5
+        u_a = _atomic_u(ion1, temps)
+        u_b = _atomic_u(ion2, temps)
+        k_n = lam * (u_a * u_b / u_ab) * np.exp(-d0 * EV_TO_ERG / (K_B_CGS * temps))
+        k_p_pa = k_n * K_B_CGS * temps / 10.0  # dyn/cm^2 -> Pa
+        log_kp.append(np.log10(k_p_pa))
+        u_mol.append(u_ab)
+        ion1s.append(ion1)
+        ion2s.append(ion2)
+        d0s.append(d0)
+
+    temps = np.asarray(temps, dtype=float)
+    return MoleculeData(
+        names=names,
+        equilibrium_temperatures=temps,
+        log_equilibrium_constants=np.asarray(log_kp),
+        partition_temperatures=temps,
+        partition_functions=np.asarray(u_mol),
+        ion1=ion1s,
+        ion2=ion2s,
+        dissociation_energies=np.asarray(d0s, dtype=float),
     )

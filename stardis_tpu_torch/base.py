@@ -19,16 +19,20 @@ from .pipeline import (
     not_ported,
     run_simulation,
 )
+from .plasma.molecules import molecule_number_density_table
 from .radiation_field.solver import gauss_legendre_thetas
 
 logger = logging.getLogger(__name__)
 
 
 def _load_atom_data(spec: str) -> AtomData:
-    """``builtin`` / ``builtin:<Zmax>``: the generated dataset."""
+    """``builtin`` / ``builtin:<Zmax>``: the generated dataset, with its
+    linelist and molecular tables."""
     if spec.startswith("builtin"):
         z_max = int(spec.split(":", 1)[1]) if ":" in spec else 30
-        return build_builtin_atom_data(max_atomic_number=z_max, include_linelists=True)
+        return build_builtin_atom_data(
+            max_atomic_number=z_max, include_linelists=True, include_molecules=True
+        )
     raise not_ported(f"atom data {spec!r} (HDF and downloaded stores)", "other inputs")
 
 
@@ -100,13 +104,41 @@ class RadiationField:
         self.I_nus = i_nus
 
 
+class StellarPlasma:
+    """Read-only view over the solved PlasmaState: every PlasmaState field
+    (ion_number_density, electron_densities, ...) passes through, plus
+    ``molecule_number_density``."""
+
+    def __init__(self, state, plan):
+        self._state = state
+        self._plan = plan
+
+    def __getattr__(self, name):
+        if name in ("_state", "_plan"):
+            raise AttributeError(name)
+        return getattr(self._state, name)
+
+    @property
+    def molecule_number_density(self):
+        """Molecular number densities (``names`` [M], ``values`` [M, D]);
+        the coupled network when ``molecules_coupled`` is set."""
+        if self._plan.molecule_tables is None:
+            raise ValueError(
+                "no molecular tables in this run: set "
+                "opacity.line.include_molecules: true"
+            )
+        return molecule_number_density_table(
+            self._plan.molecule_tables, self._state, coupled=self._plan.molecules_coupled
+        )
+
+
 class STARDISOutput:
     """Key outputs of a simulation.
 
     nus, lambdas : Quantity
     spectrum_nu : Quantity — F_nu at the outermost depth point [erg/s/cm^2/Hz]
     spectrum_lambda : Quantity — F_lambda at the outermost point [erg/s/cm^2/AA]
-    stellar_model / stellar_plasma (the PlasmaState) / stellar_radiation_field
+    stellar_model / stellar_plasma (a StellarPlasma) / stellar_radiation_field
     as ``result_options`` asks.
     """
 
@@ -181,4 +213,6 @@ def run_stardis(config, tracing_lambdas_or_nus, add_config_dict=None,
         weights=weights,
         i_nus=i_nus,
     )
-    return STARDISOutput(config.result_options, stellar_model, state, radiation_field)
+    return STARDISOutput(
+        config.result_options, stellar_model, StellarPlasma(state, plan), radiation_field
+    )

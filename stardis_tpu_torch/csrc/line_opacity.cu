@@ -1,6 +1,8 @@
-// Line-opacity accumulation on Hopper (sm_90a): alpha_line[d, p] =
-// sum over lines l of alpha[l, d] * phi(grid[p] - nu[l]) inside the
-// per-(line, depth) window  -iw[d, l] <= p - center[l] < iw[d, l].
+// Line-opacity accumulation on Hopper (sm_90a), for a batch of models:
+// alpha_line[b, d, p] = sum over lines l of alpha[b, l, d] * phi(grid[p] - nu[l])
+// inside the per-(model, line, depth) window
+// -iw[b, d, l] <= p - center[l] < iw[b, d, l].  The grid, the line
+// frequencies and the centres are shared by the models.
 //
 // Replaces the JAX package's line-accumulation programs, which all compute
 // this one sum on different TPU schedules:
@@ -11,11 +13,15 @@
 //                                           _accumulate_dense_split,
 //                                           accumulate_line_opacity_blocked
 //                                           (and its scatter chunk_body)
+//   stardis_tpu/parallel/batch.py:225       run_batch's vmap of that sum
+//                                           over a leading model axis
 // The window tiers, panels and split passes there exist to avoid v5e
 // scatter costs; this kernel gathers instead and needs none of them.
 //
-// Design: one thread owns one (depth, pixel) output; a block is one depth x
-// a tile of TILE pixels.  The block finds, by binary search over the line
+// Design: one thread owns one (model, depth, pixel) output; a block is one
+// model x one depth x a tile of TILE pixels (grid z = model).  The window
+// half-widths iw arrive precomputed (reference or accuracy mode), so the
+// kernel is the same for both window modes.  The block finds, by binary search over the line
 // centers (non-increasing: lines ascend in nu, the grid descends), the
 // contiguous line range whose windows can reach the tile at this depth, and
 // walks it in chunks staged through shared memory.  Each thread tests the
@@ -142,20 +148,22 @@ line_opacity_kernel(const T* __restrict__ grid, const T* __restrict__ line_nu,
                     const int* __restrict__ center, const T* __restrict__ alpha,
                     const T* __restrict__ gamma, const T* __restrict__ doppler,
                     const int* __restrict__ iw, const int* __restrict__ iw_max,
-                    T* __restrict__ out, int n_lines, int n_nu) {
+                    T* __restrict__ out, int n_lines, int n_depth, int n_nu) {
   __shared__ T s_nu[TILE], s_alpha[TILE], s_gamma[TILE], s_dop[TILE];
   __shared__ int s_center[TILE], s_iw[TILE];
 
   const int d = blockIdx.y;
+  const int b = blockIdx.z;
   const int p0 = blockIdx.x * TILE;
   const int p = p0 + threadIdx.x;
   const int p_last = min(p0 + TILE, n_nu) - 1;
-  const int w = iw_max[d];
+  const size_t bd = (size_t)b * n_depth + d;  // row of this (model, depth)
+  const int w = iw_max[bd];
   // a line reaches the tile iff its center lies in (p0 - w, p_last + w]
   const int l_begin = first_at_or_below(center, n_lines, p_last + w);
   const int l_end = first_at_or_below(center, n_lines, p0 - w);
 
-  const size_t row = (size_t)d * n_lines;
+  const size_t row = bd * n_lines;
   const T g = p < n_nu ? grid[p] : T(0);
   const T y_scale = T(SQRT_PI * PI);
   const T phi_scale = T(SQRT_PI);
@@ -188,38 +196,44 @@ line_opacity_kernel(const T* __restrict__ grid, const T* __restrict__ line_nu,
       }
     }
   }
-  if (p < n_nu) out[(size_t)d * n_nu + p] = acc;
+  if (p < n_nu) out[bd * n_nu + p] = acc;
 }
 
 template <typename T>
 int launch(const T* grid, const T* line_nu, const int* center, const T* alpha,
            const T* gamma, const T* doppler, const int* iw, const int* iw_max,
-           T* out, int n_lines, int n_depth, int n_nu, cudaStream_t stream) {
-  dim3 blocks((n_nu + TILE - 1) / TILE, n_depth);
+           T* out, int n_models, int n_lines, int n_depth, int n_nu,
+           cudaStream_t stream) {
+  dim3 blocks((n_nu + TILE - 1) / TILE, n_depth, n_models);
   line_opacity_kernel<T><<<blocks, TILE, 0, stream>>>(
-      grid, line_nu, center, alpha, gamma, doppler, iw, iw_max, out, n_lines, n_nu);
+      grid, line_nu, center, alpha, gamma, doppler, iw, iw_max, out, n_lines,
+      n_depth, n_nu);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// alpha, gamma, doppler, iw: [n_depth, n_lines] row-major; out: [n_depth, n_nu].
+// grid: [n_nu]; line_nu, center: [n_lines]; alpha, gamma, doppler, iw:
+// [n_models, n_depth, n_lines] row-major; iw_max: [n_models, n_depth];
+// out: [n_models, n_depth, n_nu].
 extern "C" int line_opacity_f32(const float* grid, const float* line_nu,
                                 const int* center, const float* alpha,
                                 const float* gamma, const float* doppler,
                                 const int* iw, const int* iw_max, float* out,
-                                int n_lines, int n_depth, int n_nu, void* stream) {
+                                int n_models, int n_lines, int n_depth, int n_nu,
+                                void* stream) {
   return launch<float>(grid, line_nu, center, alpha, gamma, doppler, iw, iw_max,
-                       out, n_lines, n_depth, n_nu, (cudaStream_t)stream);
+                       out, n_models, n_lines, n_depth, n_nu, (cudaStream_t)stream);
 }
 
 extern "C" int line_opacity_f64(const double* grid, const double* line_nu,
                                 const int* center, const double* alpha,
                                 const double* gamma, const double* doppler,
                                 const int* iw, const int* iw_max, double* out,
-                                int n_lines, int n_depth, int n_nu, void* stream) {
+                                int n_models, int n_lines, int n_depth, int n_nu,
+                                void* stream) {
   return launch<double>(grid, line_nu, center, alpha, gamma, doppler, iw, iw_max,
-                        out, n_lines, n_depth, n_nu, (cudaStream_t)stream);
+                        out, n_models, n_lines, n_depth, n_nu, (cudaStream_t)stream);
 }
 
 extern "C" const char* line_opacity_error_string(int status) {

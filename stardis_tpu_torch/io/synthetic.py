@@ -16,6 +16,9 @@ exercises the production reader end-to-end.
 
 from __future__ import annotations
 
+import math
+from pathlib import Path
+
 import numpy as np
 
 from ..constants import AMU_CGS, K_B_CGS
@@ -141,3 +144,45 @@ def write_marcs_file(
     with open(path, "w") as fh:
         fh.write("\n".join(lines) + "\n")
     return path
+
+
+def write_opacity_tables(directory):
+    """Write synthetic cross-section tables in the three ``opacity.file``
+    formats into ``directory``; returns {opacity source: path}.
+
+    Hminus_bf : Wishart-style two-column CSV, wavelength [AA], sigma [cm^2],
+        a bell peaking near 8500 AA like the real H- bf curve;
+    Hminus_ff : Bell & Berrington-style wavelength [AA] x theta table whose
+        header tokens end in commas;
+    H2plus_bf : Stancil-style wavelength [nm] x T table whose values carry
+        implicit exponents ('5.00-1' for 5.00e-1).
+    """
+    directory = Path(directory)
+    paths = {name: str(directory / f"{name}.dat")
+             for name in ("Hminus_bf", "Hminus_ff", "H2plus_bf")}
+
+    lam = np.linspace(2000.0, 15000.0, 50)
+    sig = 4e-17 * np.exp(-(((lam - 8500.0) / 4000.0) ** 2))
+    rows = ["# synthetic Wishart-format table"]
+    rows += [f"{wl:.1f},{s:.4e}" for wl, s in zip(lam, sig)]
+    Path(paths["Hminus_bf"]).write_text("\n".join(rows) + "\n")
+
+    thetas = np.array([0.5, 1.0, 1.5, 2.0, 2.5])
+    rows = ["# synthetic B&B-format table",
+            "wave, " + ", ".join(f"{t:.1f}" for t in thetas)]
+    for wl in np.linspace(3000.0, 12000.0, 20):
+        vals = 1e-2 * (wl / 5000.0) ** 2 * thetas**1.5
+        rows.append(f"{wl:.1f} " + " ".join(f"{v:.4e}" for v in vals))
+    Path(paths["Hminus_ff"]).write_text("\n".join(rows) + "\n")
+
+    def implicit_exponent(v):
+        e = math.ceil(-math.log10(v))
+        return f"{v * 10.0**e:.2f}-{e}"
+
+    temps = np.array([3000, 5000, 8000, 12000])
+    rows = ["# synthetic Stancil-format table", "nm " + " ".join(str(t) for t in temps)]
+    for wl in np.linspace(300.0, 1200.0, 15):
+        vals = 0.05 * (wl / 600.0) * np.sqrt(temps / 5000.0)
+        rows.append(f"{wl:.0f} " + " ".join(implicit_exponent(v) for v in vals))
+    Path(paths["H2plus_bf"]).write_text("\n".join(rows) + "\n")
+    return paths

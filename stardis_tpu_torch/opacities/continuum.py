@@ -124,6 +124,11 @@ def calc_alpha_ff_hydrogenic(
     return total[:, None] * nu_factor[None, :]
 
 
+def calc_alpha_file(sigmas, species_density):
+    """File opacity: host-interpolated sigma [D, N] x density [D]."""
+    return sigmas * species_density[:, None]
+
+
 # ----------------------------------------------------------------------
 # species-density resolution (reference opacities_solvers/util.py:111-166)
 # ----------------------------------------------------------------------

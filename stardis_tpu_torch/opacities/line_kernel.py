@@ -1,14 +1,17 @@
 """Line-profile accumulation onto the spectral grid (Kernel 1).
 
-alpha_line[D, N] = sum over lines l of alpha[l, d] * phi(nu_p - nu_l), each
-(line, depth) restricted to the reference's adaptive window
--floor(w) <= p - center_l < floor(w) around the line's center pixel.
+alpha_line[b, D, N] = sum over lines l of alpha[b, l, d] * phi(nu_p - nu_l),
+for each model b of a batch, each (line, depth) restricted to its window
+-floor(w) <= p - center_l < floor(w) around the line's center pixel: the
+reference's adaptive window, or the accuracy-controlled one.
 
 This is the sum that ``stardis_tpu/opacities/line_kernel.py`` computes on
-TPU schedules (tiers, panels, split passes, 128-lane rounding); the port
-keeps its semantics and none of its schedule.  ``accumulate_line_opacity``
+TPU schedules (tiers, panels, split passes, 128-lane rounding) and that
+``stardis_tpu/parallel/batch.py`` vmaps over models; the port keeps its
+semantics and none of its schedule.  ``accumulate_line_windows``
 dispatches on the device of its tensors: on the CPU it runs the plain torch
-version, on a CUDA device the hand-written kernel of csrc/line_opacity.cu.
+version, on a CUDA device the hand-written kernel of csrc/line_opacity.cu,
+which takes every model of a batch in one launch.
 Both read one integer half-window array computed here, so an FMA-contracted
 or reordered window formula cannot flip a window-edge pixel between them.
 """
@@ -57,42 +60,80 @@ def window_pixels(alpha, gamma, doppler, d_nu):
     return torch.clamp(win, min=float(MIN_WINDOW_PIXELS))
 
 
-def window_half_widths(alpha, gamma, doppler, d_nu, n_nu):
-    """floor(window_pixels) as int32 [L, D], clamped at n_nu + 1 (every
-    pixel offset lies in [-n_nu, n_nu - 1], so the clamp keeps the mask)."""
-    win = torch.floor(window_pixels(alpha, gamma, doppler, d_nu))
-    return torch.clamp(win, max=float(n_nu + 1)).to(torch.int32)
+def window_pixels_accuracy(alpha, gamma, doppler, d_nu, epsilon=1e-12):
+    """Accuracy-controlled half-window in pixels: the profile is cut where
+    its extinction alpha * phi drops below ``epsilon`` [1/cm] (a scalar or
+    a tensor broadcast against the [..., L, D] line arrays).
+
+    Lorentzian far wing  dnu = sqrt(alpha gamma / (pi^2 eps));
+    Gaussian core        dnu = doppler sqrt(max(0, ln(alpha / (sqrt(pi) doppler eps))));
+    floor                4 (gamma + doppler), and at least MIN_WINDOW_PIXELS.
+    """
+    lorentz = torch.sqrt(alpha * gamma / (PI**2 * epsilon))
+    core = torch.log(alpha / (SQRT_PI * doppler * epsilon))
+    gauss = doppler * torch.sqrt(torch.clamp(core, min=0.0))
+    floor = 4.0 * (gamma + doppler)
+    dnu_cut = torch.maximum(torch.maximum(lorentz, gauss), floor)
+    return torch.clamp(dnu_cut / d_nu, min=float(MIN_WINDOW_PIXELS))
 
 
-def accumulate_line_opacity(grid_centered, line_nu, centers, alpha, gamma,
-                            doppler, d_nu):
-    """alpha_line_at_nu [D, N] = sum over lines of alpha * phi(nu - nu_line)
-    within each (line, depth) window.
+def window_half_widths(alpha, gamma, doppler, d_nu, n_nu, window_mode="reference",
+                       epsilon=None):
+    """floor of the half-window as int32 [..., L, D], clamped at n_nu + 1
+    (every pixel offset lies in [-n_nu, n_nu - 1], so the clamp keeps the
+    mask).
 
-    grid_centered : [N] descending grid, minus a reference frequency
+    window_mode : "reference" (window_pixels) or "accuracy"
+        (window_pixels_accuracy), which needs ``epsilon``: the absolute
+        threshold per depth, [..., D] with the line arrays' leading axes
+        (``pipeline.accuracy_epsilon``).
+    """
+    if window_mode == "accuracy":
+        if epsilon is None:
+            raise ValueError("accuracy window mode needs the per-depth epsilon")
+        eps = epsilon.unsqueeze(-2) if torch.is_tensor(epsilon) else epsilon
+        win = window_pixels_accuracy(alpha, gamma, doppler, d_nu, epsilon=eps)
+    elif window_mode == "reference":
+        win = window_pixels(alpha, gamma, doppler, d_nu)
+    else:
+        raise ValueError(f"unknown window_mode {window_mode!r}")
+    return torch.clamp(torch.floor(win), max=float(n_nu + 1)).to(torch.int32)
+
+
+def accumulate_line_windows(grid, line_nu, centers, alpha, gamma, doppler, iw):
+    """alpha_line_at_nu = sum over lines of alpha * phi(nu - nu_line)
+    within each (line, depth) window: the plain version on the CPU, Kernel 1
+    on a CUDA device.
+
+    grid : [N] descending grid, minus a reference frequency
     line_nu : [L] line frequencies minus the same reference
     centers : [L] center pixels (line_center_indices)
-    alpha, gamma, doppler : [L, D]
-    d_nu : smallest grid step [Hz]
+    alpha, gamma, doppler : [B, L, D] for B models, or [L, D]
+    iw : integer half-windows, shaped as alpha (window_half_widths)
+    returns [B, D, N], or [D, N]
     """
-    iw = window_half_widths(alpha, gamma, doppler, d_nu, grid_centered.shape[0])
-    if grid_centered.device.type == "cuda":
-        return accumulate_line_opacity_cuda(
-            grid_centered, line_nu, centers, alpha, gamma, doppler, iw
-        )
-    if grid_centered.device.type == "cpu":
-        return accumulate_line_opacity_plain(
-            grid_centered, line_nu, centers, alpha, gamma, doppler, iw
-        )
-    raise ValueError(f"no line-opacity path for device {grid_centered.device}")
+    if grid.device.type == "cuda":
+        return accumulate_line_opacity_cuda(grid, line_nu, centers, alpha, gamma,
+                                            doppler, iw)
+    if grid.device.type == "cpu":
+        return accumulate_line_opacity_plain(grid, line_nu, centers, alpha, gamma,
+                                             doppler, iw)
+    raise ValueError(f"no line-opacity path for device {grid.device}")
 
 
 def accumulate_line_opacity_plain(grid, line_nu, centers, alpha, gamma,
                                   doppler, iw, budget=None):
-    """Plain torch version: a loop over chunks of lines.  Each chunk masks
-    the pixel span its windows can reach ([C, D, span] <= ``budget``
+    """Plain torch version (shapes as accumulate_line_windows): models one
+    after another, each a loop over chunks of lines.  Each chunk masks the
+    pixel span its windows can reach ([C, D, span] <= ``budget``
     elements), evaluates the Voigt profile on the in-window pairs and sums
     them per (depth, pixel)."""
+    if alpha.ndim == 3:
+        return torch.stack([
+            accumulate_line_opacity_plain(grid, line_nu, centers, alpha[b], gamma[b],
+                                          doppler[b], iw[b], budget)
+            for b in range(alpha.shape[0])
+        ])
     n_nu = grid.shape[0]
     n_lines, n_depth = alpha.shape
     out = torch.zeros((n_depth, n_nu), dtype=alpha.dtype, device=alpha.device)
@@ -147,17 +188,21 @@ def _voigt_in_window(delta_nu, doppler_width, gamma):
 
 
 _LINE_ARGS = (
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 )
 
 
 def accumulate_line_opacity_cuda(grid, line_nu, centers, alpha, gamma,
                                  doppler, iw):
-    """Kernel 1 (csrc/line_opacity.cu) on CUDA tensors; raises on anything
-    the kernel does not take.  Lines must be sorted so that ``centers`` is
+    """Kernel 1 (csrc/line_opacity.cu) on CUDA tensors, all models in one
+    launch (shapes as accumulate_line_windows); raises on anything the
+    kernel does not take.  Lines must be sorted so that ``centers`` is
     non-increasing (lines ascending in nu on a descending grid)."""
+    single = alpha.ndim == 2
+    if single:
+        alpha, gamma, doppler, iw = alpha[None], gamma[None], doppler[None], iw[None]
     n_nu = grid.shape[0]
-    n_lines, n_depth = alpha.shape
+    n_models, n_lines, n_depth = alpha.shape
     dtype = alpha.dtype
     tensors = (grid, line_nu, alpha, gamma, doppler)
     if dtype not in (torch.float32, torch.float64):
@@ -168,10 +213,11 @@ def accumulate_line_opacity_cuda(grid, line_nu, centers, alpha, gamma,
         raise ValueError("line_opacity kernel: all tensors must be on one CUDA device")
     if grid.ndim != 1 or line_nu.shape != (n_lines,) or centers.shape != (n_lines,):
         raise ValueError("line_opacity kernel: grid must be [N], line_nu/centers [L]")
-    if any(t.shape != (n_lines, n_depth) for t in (gamma, doppler, iw)):
-        raise ValueError("line_opacity kernel: alpha/gamma/doppler/iw must be [L, D]")
+    if any(t.shape != alpha.shape for t in (gamma, doppler, iw)):
+        raise ValueError("line_opacity kernel: alpha/gamma/doppler/iw must be [B, L, D]")
     if n_lines == 0:
-        return torch.zeros((n_depth, n_nu), dtype=dtype, device=grid.device)
+        out = torch.zeros((n_models, n_depth, n_nu), dtype=dtype, device=grid.device)
+        return out[0] if single else out
     centers = centers.to(torch.int32).contiguous()
     if n_lines > 1 and not bool((centers[1:] <= centers[:-1]).all()):
         raise ValueError(
@@ -180,24 +226,24 @@ def accumulate_line_opacity_cuda(grid, line_nu, centers, alpha, gamma,
         )
     grid = grid.contiguous()
     line_nu = line_nu.contiguous()
-    # depth-major [D, L] so a block's line chunk loads are coalesced
-    alpha_t = alpha.t().contiguous()
-    gamma_t = gamma.t().contiguous()
-    doppler_t = doppler.t().contiguous()
-    iw_t = iw.to(torch.int32).t().contiguous()
-    iw_max = iw_t.amax(dim=1).contiguous()
-    out = torch.empty((n_depth, n_nu), dtype=dtype, device=grid.device)
+    # depth-major [B, D, L] so a block's line chunk loads are coalesced
+    alpha_t = alpha.transpose(1, 2).contiguous()
+    gamma_t = gamma.transpose(1, 2).contiguous()
+    doppler_t = doppler.transpose(1, 2).contiguous()
+    iw_t = iw.to(torch.int32).transpose(1, 2).contiguous()
+    iw_max = iw_t.amax(dim=2).contiguous()  # [B, D]
+    out = torch.empty((n_models, n_depth, n_nu), dtype=dtype, device=grid.device)
     suffix = "f32" if dtype == torch.float32 else "f64"
     fn = _cuda.bind("line_opacity", f"line_opacity_{suffix}", _LINE_ARGS)
     p = _cuda.ptr
     status = fn(
         p(grid), p(line_nu), p(centers), p(alpha_t), p(gamma_t), p(doppler_t),
-        p(iw_t), p(iw_max), p(out), n_lines, n_depth, n_nu,
+        p(iw_t), p(iw_max), p(out), n_models, n_lines, n_depth, n_nu,
         _cuda.stream_ptr(grid.device),
     )
     accumulate_line_opacity_cuda.launches += 1
     _cuda.check("line_opacity", status)
-    return out
+    return out[0] if single else out
 
 
 accumulate_line_opacity_cuda.launches = 0

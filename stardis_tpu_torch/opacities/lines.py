@@ -215,6 +215,30 @@ def synth_linelist(atom_data, n_lines, lam_lo=6450.0, lam_hi=6650.0, seed=7):
     return atom_data
 
 
+def synth_molecule_linelist(atom_data, n_lines, lam_lo=6450.0, lam_hi=6650.0, seed=11):
+    """Attach a synthetic VALD-style molecular linelist over the molecules
+    of ``atom_data.molecule_data``: seeded draws of wavelength, gf, lower
+    energy and broadening, 70 % of them with a negative (scaled-law)
+    packed van der Waals parameter and the rest 0."""
+    rng = np.random.default_rng(seed)
+    j_lo = rng.integers(0, 40, n_lines).astype(float)
+    atom_data.linelist_molecules = Table(
+        {
+            "molecule": rng.choice(np.asarray(atom_data.molecule_data.names), n_lines),
+            "wavelength": rng.uniform(lam_lo, lam_hi, n_lines),
+            "log_gf": rng.uniform(-4.0, 0.0, n_lines),
+            "e_low": rng.uniform(0.0, 2.0, n_lines),
+            "j_lo": j_lo,
+            "j_up": j_lo + 1.0,
+            "rad": rng.uniform(6.0, 8.0, n_lines),
+            "stark": rng.uniform(-6.5, -4.5, n_lines),
+            "waals": np.where(rng.random(n_lines) < 0.7,
+                              rng.uniform(-8.0, -7.0, n_lines), 0.0),
+        }
+    )
+    return atom_data
+
+
 def _column(x, like):
     """[L] host array -> [L, 1] tensor of ``like``'s dtype and device."""
     return torch.as_tensor(np.asarray(x, dtype=np.float64), device=like.device).to(

@@ -3,16 +3,22 @@
 The port of ``stardis_tpu/pipeline.py``, single device:
 
 1. ``build_simulation_plan`` — host phase (NumPy): config, model and atom
-   data -> plasma tables, selected lines, quadrature and geometry.
-2. ``stage_plasma_and_lines`` — LTE solve + per-line alpha/gamma/Doppler.
+   data -> plasma tables, file-opacity cross-sections, selected atomic and
+   molecular lines, molecular tables, quadrature and geometry
+   (plane-parallel or spherical).
+2. ``stage_plasma_and_lines`` — LTE solve + per-line alpha/gamma/Doppler
+   for the "atomic" and "molecular" line sets.
 3. ``validate_line_quants`` — one finiteness flag, one host sync.
-4. ``stage_spectrum`` — continuum, line accumulation (Kernel 1), blackbody
-   source, formal solution (Kernel 2) -> F_nu.
+4. ``spectrum_batch`` — for a batch of models: continuum, line
+   accumulation (Kernel 1, once per line set for the whole batch, in the
+   reference or the accuracy window mode), blackbody source, formal
+   solution (Kernel 2, once for the whole batch) -> F_nu.  A single run
+   (``stage_spectrum``) is a batch of one.
 
 The JAX package's window tiers (``line_window_tiers``) are a TPU schedule
 and have no counterpart: Kernel 1 takes the per-(line, depth) windows
 directly.  Branches the port does not take yet raise NotImplementedError
-naming their ROADMAP.md Queue 1 item.
+naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -27,9 +33,10 @@ import torch
 
 from .constants import H_CGS
 from .opacities import continuum as cont
+from .opacities.file_tables import sigma_file
 from .opacities.line_kernel import (
-    accumulate_line_opacity,
     accumulate_line_opacity_plain,
+    accumulate_line_windows,
     grid_min_step,
     line_center_indices,
     window_half_widths,
@@ -40,9 +47,17 @@ from .opacities.lines import (
     prepare_line_data,
 )
 from .plasma.lte import device_tables, solve_lte
+from .plasma.molecules import (
+    MoleculeLineData,
+    MoleculeTables,
+    build_molecule_tables,
+    compute_molecule_line_quantities,
+    prepare_molecule_line_data,
+)
 from .plasma.tables import PlasmaTables, build_plasma_tables
 from .radiation_field.blackbody import blackbody_flux_at_nu
 from .radiation_field.solver import (
+    calculate_spherical_ray,
     gauss_legendre_thetas,
     raytrace,
     raytrace_plain,
@@ -50,11 +65,14 @@ from .radiation_field.solver import (
 
 logger = logging.getLogger(__name__)
 
+#: speed of light in AA/s, for the file tables' wavelength grid
+C_AA_PER_S = 2.99792458e18
 
-def not_ported(what, roadmap_item):
+
+def not_ported(what, roadmap_item, queue=1):
     return NotImplementedError(
         f"{what} is not ported to stardis_tpu_torch yet "
-        f"(ROADMAP.md Queue 1: {roadmap_item})"
+        f"(ROADMAP.md Queue {queue}: {roadmap_item})"
     )
 
 
@@ -75,6 +93,7 @@ class SimulationPlan:
     temperatures: np.ndarray  # [D]
     n_elem: np.ndarray  # [E, D]
     microturbulence_cgs: float
+    file_sources: list  # [(name, sigmas [D, N], SpeciesDensityPlan)]
     bf: BFSpecies | None
     ff_slots: np.ndarray  # [M]
     ff_ion_numbers: np.ndarray  # [M]
@@ -85,30 +104,63 @@ class SimulationPlan:
     use_vald_broadening: bool
     ray_distances: np.ndarray  # [G, T]
     weights: np.ndarray  # [T]
+    inward_rays: bool
     photospheric_correction: float | None
     track_individual_intensities: bool = False
     d_nu: float = 0.0
+    window_mode: str = "reference"
+    window_epsilon: float = 1e-4
+    molecule_tables: MoleculeTables | None = None
+    molecule_line_data: MoleculeLineData | None = None
+    molecules_coupled: bool = False
 
 
 def _cfg_dict(node):
     return node.to_dict() if hasattr(node, "to_dict") else dict(node)
 
 
+def model_geometry(stellar_model, thetas):
+    """(ray_distances [G, T], inward_rays, photospheric_correction) of one
+    model: chords through the shells and (r_outer / r_ref)^2 for a
+    spherical model, dr / cos(theta) and no correction otherwise."""
+    r = np.asarray(stellar_model.geometry.r, dtype=np.float64)
+    if stellar_model.spherical:
+        ref_r = float(np.asarray(stellar_model.geometry.reference_r))
+        return calculate_spherical_ray(thetas, r), True, float((r[-1] / ref_r) ** 2)
+    return np.diff(r)[:, None] / np.cos(thetas)[None, :], False, None
+
+
+def elemental_densities(stellar_model, tables):
+    """[E, D] elemental number densities, rows in the tables' sorted-Z
+    order."""
+    comp = stellar_model.composition
+    row = {int(z): i for i, z in enumerate(comp.atomic_numbers)}
+    return comp.elemental_number_density[[row[int(z)] for z in tables.zs]]
+
+
+def file_cross_sections(opacity_files, tracing_nus, temperatures):
+    """[(name, sigma [D, N])] of the configured ``opacity.file`` tables."""
+    lambdas_aa = C_AA_PER_S / np.asarray(tracing_nus)
+    return [
+        (name, sigma_file(lambdas_aa, temperatures, fpath, name))
+        for name, fpath in _cfg_dict(opacity_files).items()
+    ]
+
+
 def build_simulation_plan(config, atom_data, stellar_model, tracing_nus_hz):
-    """Host phase for the ported branches: plane-parallel MARCS models,
-    bf/ff/Rayleigh/Thomson continuum, TARDIS or VALD atomic lines, reference
-    window mode."""
+    """Host phase: MARCS models (plane-parallel or spherical), file,
+    bf/ff/Rayleigh/Thomson continuum, TARDIS or VALD atomic lines,
+    molecules and molecular lines, reference or accuracy window mode."""
     tracing_nus = np.sort(np.asarray(tracing_nus_hz, dtype=np.float64))[::-1].copy()
     temps = np.asarray(stellar_model.temperatures, dtype=np.float64)
-    comp = stellar_model.composition
-    tables = build_plasma_tables(atom_data, comp.atomic_numbers)
-    # tables sort atomic numbers; align the density rows to that order
-    row = {int(z): i for i, z in enumerate(comp.atomic_numbers)}
-    n_elem = comp.elemental_number_density[[row[int(z)] for z in tables.zs]]
+    tables = build_plasma_tables(atom_data, stellar_model.composition.atomic_numbers)
+    n_elem = elemental_densities(stellar_model, tables)
 
     opacity = config.opacity
-    if _cfg_dict(opacity.file):
-        raise not_ported("opacity.file", "file opacities")
+    file_sources = [
+        (name, sig, cont.plan_species_density(name, tables))
+        for name, sig in file_cross_sections(opacity.file, tracing_nus, temps)
+    ]
 
     # --- hydrogenic bf ------------------------------------------------
     bf = None
@@ -144,10 +196,6 @@ def build_simulation_plan(config, atom_data, stellar_model, tracing_nus_hz):
     line_data = None
     use_vald = False
     if not line_cfg.disable:
-        if line_cfg.include_molecules:
-            raise not_ported("opacity.line.include_molecules", "molecules")
-        if line_cfg.get("window_mode", "reference") != "reference":
-            raise not_ported("window_mode: accuracy", "accuracy window mode")
         use_vald = line_cfg.vald_linelist.use_linelist
         line_data = prepare_line_data(
             atom_data,
@@ -159,12 +207,20 @@ def build_simulation_plan(config, atom_data, stellar_model, tracing_nus_hz):
         )
         logger.info("Selected %d lines in the tracing window", line_data.n_lines)
 
+    # --- molecules ----------------------------------------------------
+    molecule_tables = None
+    molecule_line_data = None
+    if not line_cfg.disable and line_cfg.include_molecules:
+        molecule_tables = build_molecule_tables(atom_data, tables, temps)
+        if use_vald and atom_data.linelist_molecules is not None:
+            molecule_line_data = prepare_molecule_line_data(
+                atom_data, molecule_tables, tracing_nus.min(), tracing_nus.max()
+            )
+            logger.info("Selected %d molecular lines", molecule_line_data.n_lines)
+
     # --- geometry / quadrature ----------------------------------------
-    if stellar_model.spherical:
-        raise not_ported("spherical models", "spherical geometry")
     thetas, weights = gauss_legendre_thetas(int(config.no_of_thetas))
-    r = np.asarray(stellar_model.geometry.r, dtype=np.float64)
-    ray_distances = np.diff(r)[:, None] / np.cos(thetas)[None, :]
+    ray_distances, inward_rays, correction = model_geometry(stellar_model, thetas)
 
     micro = stellar_model.microturbulence
     micro_cgs = float(micro.cgs.value) if hasattr(micro, "cgs") else float(micro)
@@ -177,6 +233,7 @@ def build_simulation_plan(config, atom_data, stellar_model, tracing_nus_hz):
         temperatures=temps,
         n_elem=n_elem,
         microturbulence_cgs=micro_cgs,
+        file_sources=file_sources,
         bf=bf,
         ff_slots=np.asarray(ff_slots, dtype=np.int64),
         ff_ion_numbers=np.asarray(ff_ions, dtype=np.float64),
@@ -189,56 +246,67 @@ def build_simulation_plan(config, atom_data, stellar_model, tracing_nus_hz):
         ) if not line_cfg.disable else False,
         ray_distances=ray_distances,
         weights=weights,
-        photospheric_correction=None,
+        inward_rays=inward_rays,
+        photospheric_correction=correction,
         track_individual_intensities=bool(
             config.result_options.return_radiation_field
         ),
         d_nu=grid_min_step(tracing_nus),
+        window_mode=str(line_cfg.get("window_mode", "reference")),
+        window_epsilon=float(line_cfg.get("window_epsilon", 1e-4)),
+        molecule_tables=molecule_tables,
+        molecule_line_data=molecule_line_data,
+        molecules_coupled=bool(line_cfg.get("molecules_coupled", False)),
     )
+
+
+def _copy_fields(cls, obj):
+    """A ``cls`` dataclass from the same-named attributes of ``obj``, its
+    float arrays in float64."""
+    out = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(obj, f.name)
+        if isinstance(v, np.ndarray) and v.dtype.kind == "f":
+            v = v.astype(np.float64)
+        out[f.name] = v
+    return cls(**out)
 
 
 def plan_from_reference(plan) -> SimulationPlan:
     """The port's plan from a ``stardis_tpu.pipeline.SimulationPlan`` (taken
     by duck typing: its fields are NumPy arrays), in float64."""
-    if plan.file_sources:
-        raise not_ported("opacity.file", "file opacities")
-    if plan.molecule_tables is not None or plan.molecule_line_data is not None:
-        raise not_ported("molecules", "molecules")
-    if plan.inward_rays:
-        raise not_ported("spherical models", "spherical geometry")
-    if plan.window_mode != "reference":
-        raise not_ported("window_mode: accuracy", "accuracy window mode")
-
-    def copy_fields(cls, obj):
-        out = {}
-        for f in dataclasses.fields(cls):
-            v = getattr(obj, f.name)
-            if isinstance(v, np.ndarray) and v.dtype.kind == "f":
-                v = v.astype(np.float64)
-            out[f.name] = v
-        return cls(**out)
-
     f64 = lambda x: np.asarray(x, dtype=np.float64)  # noqa: E731
+    maybe = lambda cls, obj: None if obj is None else _copy_fields(cls, obj)  # noqa: E731
+    correction = plan.photospheric_correction
     return SimulationPlan(
         tracing_nus=f64(plan.tracing_nus),
-        tables=copy_fields(PlasmaTables, plan.tables),
+        tables=_copy_fields(PlasmaTables, plan.tables),
         temperatures=f64(plan.temperatures),
         n_elem=f64(plan.n_elem),
         microturbulence_cgs=float(plan.microturbulence_cgs),
-        bf=None if plan.bf is None else copy_fields(BFSpecies, plan.bf),
+        file_sources=[
+            (name, f64(sig), _copy_fields(cont.SpeciesDensityPlan, dplan))
+            for name, sig, dplan in plan.file_sources
+        ],
+        bf=maybe(BFSpecies, plan.bf),
         ff_slots=np.asarray(plan.ff_slots, dtype=np.int64),
         ff_ion_numbers=f64(plan.ff_ion_numbers),
         rayleigh_species=list(plan.rayleigh_species),
         disable_electron_scattering=bool(plan.disable_electron_scattering),
-        line_data=(None if plan.line_data is None
-                   else copy_fields(LineData, plan.line_data)),
+        line_data=maybe(LineData, plan.line_data),
         broadening_flags=tuple(plan.broadening_flags),
         use_vald_broadening=bool(plan.use_vald_broadening),
         ray_distances=f64(plan.ray_distances),
         weights=f64(plan.weights),
-        photospheric_correction=plan.photospheric_correction,
+        inward_rays=bool(plan.inward_rays),
+        photospheric_correction=None if correction is None else float(correction),
         track_individual_intensities=bool(plan.track_individual_intensities),
         d_nu=float(plan.d_nu),
+        window_mode=str(plan.window_mode),
+        window_epsilon=float(plan.window_epsilon),
+        molecule_tables=maybe(MoleculeTables, plan.molecule_tables),
+        molecule_line_data=maybe(MoleculeLineData, plan.molecule_line_data),
+        molecules_coupled=bool(plan.molecules_coupled),
     )
 
 
@@ -262,6 +330,18 @@ def _stage(timings, name, device):
     timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
 
 
+@contextmanager
+def _full_float32_matmul():
+    """Matrix products in full float32, not TF32, inside the block only:
+    the previous setting comes back afterwards."""
+    previous = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = previous
+
+
 def _tensor(x, like):
     """Host float64 array -> tensor of ``like``'s dtype and device."""
     return torch.as_tensor(np.asarray(x, dtype=np.float64), device=like.device).to(like.dtype)
@@ -270,24 +350,34 @@ def _tensor(x, like):
 def stage_plasma_and_lines(plan: SimulationPlan, temps, n_elem):
     """LTE solve + per-line quantities on the device of ``temps``.
 
-    Returns (state, quants): quants maps "atomic" to the (alpha, gamma,
-    doppler) triple, or is None when no lines are configured.
+    Returns (state, quants): quants maps "atomic" / "molecular" to the
+    (alpha, gamma, doppler) triple of that line set, or is None when no
+    lines are configured.
     """
     dt = device_tables(plan.tables, dtype=temps.dtype, device=temps.device)
     state = solve_lte(temps, n_elem, dt)
-    quants = None
+    quants = {}
     if plan.line_data is not None and plan.line_data.n_lines > 0:
-        quants = {
-            "atomic": compute_line_quantities(
-                plan.line_data,
-                state,
-                temps,
-                plan.microturbulence_cgs,
-                plan.broadening_flags,
-                use_vald_broadening=plan.use_vald_broadening,
-            )
-        }
-    return state, quants
+        quants["atomic"] = compute_line_quantities(
+            plan.line_data,
+            state,
+            temps,
+            plan.microturbulence_cgs,
+            plan.broadening_flags,
+            use_vald_broadening=plan.use_vald_broadening,
+        )
+    mld = plan.molecule_line_data
+    if mld is not None and mld.n_lines > 0:
+        quants["molecular"] = compute_molecule_line_quantities(
+            mld,
+            plan.molecule_tables,
+            state,
+            temps,
+            plan.microturbulence_cgs,
+            plan.broadening_flags,
+            coupled=plan.molecules_coupled,
+        )
+    return state, (quants or None)
 
 
 def validate_line_quants(line_quants):
@@ -311,24 +401,31 @@ def validate_line_quants(line_quants):
         )
 
 
-def compute_continuum(plan: SimulationPlan, state, tracing_nus):
-    """All continuum sources -> dict of [D, N] tensors."""
+def compute_continuum(plan: SimulationPlan, state, tracing_nus, file_sigmas=None):
+    """All continuum sources -> dict of [D, N] tensors.
+
+    file_sigmas: optional [D, N] host arrays, one per plan.file_sources
+    entry, replacing the plan's (a batch member's own temperatures)."""
     n_nu = tracing_nus.shape[0]
     t = state.t
     out = {}
+    for i, (name, sig, dplan) in enumerate(plan.file_sources):
+        density = cont.species_density(dplan, state, plan.tables)
+        sig = sig if file_sigmas is None else file_sigmas[i]
+        out[f"alpha_file_{name}"] = cont.calc_alpha_file(_tensor(sig, t), density)
+
     if plan.bf is not None and len(plan.bf.level_flat):
-        if t.is_cuda:
-            # the bf (D,K)x(K,N) product must run in full float32, not TF32
-            torch.backends.cuda.matmul.allow_tf32 = False
         level_densities = state.level_number_density[
             torch.as_tensor(plan.bf.level_flat, device=t.device)
         ]
-        out["alpha_bf"] = cont.calc_alpha_bf_hydrogenic(
-            tracing_nus,
-            level_densities,
-            _tensor(plan.bf.cutoff_frequencies, t),
-            _tensor(plan.bf.coefficients, t),
-        )
+        # the bf (D,K)x(K,N) product runs in full float32 on the card
+        with _full_float32_matmul():
+            out["alpha_bf"] = cont.calc_alpha_bf_hydrogenic(
+                tracing_nus,
+                level_densities,
+                _tensor(plan.bf.cutoff_frequencies, t),
+                _tensor(plan.bf.coefficients, t),
+            )
 
     if len(plan.ff_slots):
         ion_densities = state.ion_number_density[
@@ -359,61 +456,119 @@ def compute_continuum(plan: SimulationPlan, state, tracing_nus):
     return out
 
 
-def stage_spectrum(plan: SimulationPlan, state, line_quants, plain=False,
+def _continuum_epsilon(plan, continuum):
+    """window_epsilon times the per-depth minimum over the grid of the
+    summed continuum (summed in the dict's order): [..., D]."""
+    total = None
+    for val in continuum.values():
+        total = val if total is None else total + val
+    return plan.window_epsilon * torch.amin(total, dim=-1)
+
+
+def accuracy_epsilon(plan, state):
+    """Per-depth absolute truncation threshold [1/cm] of the accuracy
+    window mode: epsilon_rel times the minimum over the grid of the total
+    continuum extinction, so wing truncation is bounded relative to the
+    local continuum whatever dominates it."""
+    tracing = _tensor(plan.tracing_nus, state.t)
+    return _continuum_epsilon(plan, compute_continuum(plan, state, tracing))
+
+
+#: the line sets and the opacity keys their sums go under
+LINE_SETS = (("atomic", "alpha_line_at_nu"), ("molecular", "molecule_alpha_line_at_nu"))
+
+
+def spectrum_batch(plan: SimulationPlan, states, line_quants, ray_distances=None,
+                   photospheric_correction=None, file_sigmas=None, plain=False,
                    timings=None):
-    """Opacities + formal solution -> (F_nu, total, opacities, I_nus).
+    """Opacities + formal solution for a batch of models that share the
+    plan's grid, lines and configuration.
 
-    ``plain=True`` runs the plain torch versions of both kernels on any
-    device (the reference the kernels are checked against)."""
-    t = state.t
-    tracing_nus = _tensor(plan.tracing_nus, t)
-    with _stage(timings, "continuum", t.device):
-        opacities = compute_continuum(plan, state, tracing_nus)
-
-    if line_quants and "atomic" in line_quants:
-        with _stage(timings, "line_opacity", t.device):
-            alpha, gamma, doppler = line_quants["atomic"]
-            # the line sum sees the grid only through dnu = grid - line_nu;
-            # shifting both by a reference frequency in float64 before the
-            # cast removes the float32 cancellation of two ~4.5e14 Hz values
-            # (ulp ~3e7 Hz, ~4% of a 0.01 AA pixel)
-            nu_ref = float(plan.tracing_nus[len(plan.tracing_nus) // 2])
-            grid_c = _tensor(plan.tracing_nus - nu_ref, t)
-            line_nu_c = _tensor(plan.line_data.nu - nu_ref, t)
-            centers = torch.as_tensor(
-                line_center_indices(plan.tracing_nus, plan.line_data.nu),
-                device=t.device,
+    states, line_quants : one stage-1 result per model
+    ray_distances : [B, G, T] host array; default the plan's, for each model
+    photospheric_correction : [B] host array, a number, or None (none)
+    file_sigmas : per plan.file_sources entry, a [B, D, N] host array
+    plain : run the plain torch versions of both kernels on any device
+        (the reference the kernels are checked against)
+    returns F_nu [B, D, N], total [B, D, N], opacities (each [B, ...]),
+        I_nus [B, D, N, T] or None
+    """
+    t0 = states[0].t
+    n_models = len(states)
+    tracing_nus = _tensor(plan.tracing_nus, t0)
+    with _stage(timings, "continuum", t0.device):
+        continua = [
+            compute_continuum(
+                plan, state, tracing_nus,
+                None if file_sigmas is None else [sig[b] for sig in file_sigmas],
             )
-            if plain:
-                iw = window_half_widths(alpha, gamma, doppler, plan.d_nu, len(grid_c))
-                line_opacity = accumulate_line_opacity_plain(
-                    grid_c, line_nu_c, centers, alpha, gamma, doppler, iw
-                )
-            else:
-                line_opacity = accumulate_line_opacity(
-                    grid_c, line_nu_c, centers, alpha, gamma, doppler, plan.d_nu
-                )
-        opacities["alpha_line_at_nu"] = line_opacity
-        opacities["alpha_line_at_nu_gammas"] = gamma
-        opacities["alpha_line_at_nu_doppler_widths"] = doppler
+            for b, state in enumerate(states)
+        ]
+        opacities = {key: torch.stack([c[key] for c in continua]) for key in continua[0]}
+        epsilon = (
+            _continuum_epsilon(plan, opacities) if plan.window_mode == "accuracy" else None
+        )
 
-    with _stage(timings, "formal_solution", t.device):
+    line_data = {"atomic": plan.line_data, "molecular": plan.molecule_line_data}
+    # the line sum sees the grid only through dnu = grid - line_nu; shifting
+    # both by a reference frequency in float64 before the cast removes the
+    # float32 cancellation of two ~4.5e14 Hz values (ulp ~3e7 Hz, ~4% of a
+    # 0.01 AA pixel)
+    nu_ref = float(plan.tracing_nus[len(plan.tracing_nus) // 2])
+    grid_c = _tensor(plan.tracing_nus - nu_ref, t0)
+    accumulate = accumulate_line_opacity_plain if plain else accumulate_line_windows
+    for key, label in LINE_SETS:
+        if not line_quants[0] or key not in line_quants[0]:
+            continue
+        with _stage(timings, "line_opacity", t0.device):
+            alpha, gamma, doppler = (
+                torch.stack([q[key][i] for q in line_quants]) for i in range(3)
+            )  # [B, L, D]
+            line_nu = line_data[key].nu
+            centers = torch.as_tensor(
+                line_center_indices(plan.tracing_nus, line_nu), device=t0.device
+            )
+            iw = window_half_widths(alpha, gamma, doppler, plan.d_nu, len(grid_c),
+                                    plan.window_mode, epsilon)
+            opacities[label] = accumulate(
+                grid_c, _tensor(line_nu - nu_ref, t0), centers, alpha, gamma, doppler, iw
+            )
+        opacities[label + "_gammas"] = gamma
+        opacities[label + "_doppler_widths"] = doppler
+
+    with _stage(timings, "formal_solution", t0.device):
         total = None
         for key, val in opacities.items():
             if "gammas" in key or "doppler" in key:
                 continue
             total = val if total is None else total + val
-        source = blackbody_flux_at_nu(tracing_nus, t)
+        source = torch.stack([blackbody_flux_at_nu(tracing_nus, s.t) for s in states])
+        if ray_distances is None:
+            ray_distances = np.repeat(plan.ray_distances[None], n_models, axis=0)
         trace = raytrace_plain if plain else raytrace
         f_nu, i_nus = trace(
             total,
             source,
-            _tensor(plan.ray_distances, t),
-            _tensor(plan.weights, t),
-            photospheric_correction=plan.photospheric_correction,
+            _tensor(ray_distances, t0),
+            _tensor(plan.weights, t0),
+            inward_rays=plan.inward_rays,
+            photospheric_correction=photospheric_correction,
             track_individual_intensities=plan.track_individual_intensities,
         )
     return f_nu, total, opacities, i_nus
+
+
+def stage_spectrum(plan: SimulationPlan, state, line_quants, plain=False,
+                   timings=None):
+    """Opacities + formal solution of one model -> (F_nu, total, opacities,
+    I_nus): ``spectrum_batch`` on a batch of one."""
+    f_nu, total, opacities, i_nus = spectrum_batch(
+        plan, [state], [line_quants],
+        photospheric_correction=plan.photospheric_correction,
+        plain=plain, timings=timings,
+    )
+    return (f_nu[0], total[0], {k: v[0] for k, v in opacities.items()},
+            None if i_nus is None else i_nus[0])
 
 
 def run_simulation(plan: SimulationPlan, device="cpu", dtype=torch.float64,

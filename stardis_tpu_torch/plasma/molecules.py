@@ -1,0 +1,409 @@
+"""Diatomic molecular chemistry (PyTorch port of
+``stardis_tpu/plasma/molecules.py``).
+
+* The K(T) cubic-spline and U_mol(T) linear interpolations depend only on
+  the model temperatures, so they run on the host when the plan is built
+  (SciPy / NumPy), giving dense [molecule, depth] tables.
+* The equilibrium densities (closed-form quadratics, or the opt-in coupled
+  network) and the molecular line quantities run on the device from the
+  plasma state.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import re
+
+import numpy as np
+import torch
+
+from ..atom_data.base import Table
+from ..constants import (
+    ALPHA_COEFFICIENT,
+    C_CGS,
+    EV_TO_ERG,
+    H_CGS,
+    K_B_CGS,
+)
+from ..util.species import element_symbol2atomic_number
+
+logger = logging.getLogger(__name__)
+
+# ideal-gas conversion: K_n [cm^-3] = 10^K_p * Pa / (k_B T); 1 Pa = 10 dyn/cm^2
+PA_TO_CGS = 10.0
+
+#: warn when the coupled solver leaves a larger conservation residual
+COUPLED_RESIDUAL_WARN = 1e-6
+
+
+def parse_molecular_ion(symbol: str):
+    """'H2+' style constituent symbol -> (atomic_number, charge)."""
+    m = re.match(r"([A-Z][a-z]?)(\+*)(\-*)$", symbol.strip())
+    if not m:
+        raise ValueError(f"cannot parse molecular constituent {symbol!r}")
+    z = element_symbol2atomic_number(m.group(1))
+    charge = len(m.group(2)) - len(m.group(3))
+    return z, charge
+
+
+@dataclasses.dataclass
+class MoleculeTables:
+    """Host-prepared molecular data for a fixed temperature grid."""
+
+    names: list  # [M]
+    ion1_slot: np.ndarray  # [M]
+    ion2_slot: np.ndarray  # [M]
+    homonuclear: np.ndarray  # [M] bool
+    k_density: np.ndarray  # [M, D] number-density equilibrium constant
+    partition_function: np.ndarray  # [M, D]
+    mass: np.ndarray  # [M] g (sum of constituent masses)
+    included: np.ndarray  # [M] bool (False -> zero density)
+
+    @property
+    def n_molecules(self):
+        return len(self.names)
+
+    def index_of(self, name):
+        return self.names.index(name)
+
+
+def build_molecule_tables(atom_data, tables, temperatures) -> MoleculeTables:
+    """Interpolate the K(T) and U(T) tables onto the model temperatures."""
+    from scipy.interpolate import CubicSpline
+
+    md = atom_data.molecule_data
+    if md is None:
+        raise ValueError(
+            "No molecular data in atomic data. Provide Barklem & Collet 2016 "
+            "tables (equilibrium constants, partition functions, "
+            "dissociation energies)."
+        )
+    temps = np.asarray(temperatures, dtype=float)
+
+    names, i1, i2, homo, kk, uu, mass, included = [], [], [], [], [], [], [], []
+    for m, molecule in enumerate(md.names):
+        names.append(molecule)
+        ok = True
+        z1 = c1 = z2 = c2 = 0
+        try:
+            z1, c1 = parse_molecular_ion(md.ion1[m])
+            z2, c2 = parse_molecular_ion(md.ion2[m])
+        except ValueError:
+            ok = False
+        if ok and (c1 == -1 or c2 == -1):
+            logger.warning(
+                "Negative ionic molecules not supported. Assuming no %s.", molecule
+            )
+            ok = False
+        slot1 = slot2 = 0
+        if ok:
+            try:
+                slot1 = tables.slot_of(z1, c1)
+                slot2 = tables.slot_of(z2, c2)
+            except KeyError:
+                logger.warning(
+                    "Constituents of %s not in included elements; assuming "
+                    "no %s.", molecule, molecule,
+                )
+                ok = False
+
+        spline = CubicSpline(
+            md.equilibrium_temperatures, md.log_equilibrium_constants[m],
+            extrapolate=True,
+        )
+        log_kp = spline(temps)
+        k_n = (10.0**log_kp) * PA_TO_CGS / (K_B_CGS * temps)
+        u_mol = np.interp(temps, md.partition_temperatures, md.partition_functions[m])
+
+        i1.append(slot1)
+        i2.append(slot2)
+        homo.append(ok and (z1 == z2 and c1 == c2))
+        kk.append(k_n)
+        uu.append(u_mol)
+        m1 = float(atom_data.mass_of([z1])[0]) if ok else 0.0
+        m2 = float(atom_data.mass_of([z2])[0]) if ok else 0.0
+        mass.append(m1 + m2)
+        included.append(ok)
+
+    return MoleculeTables(
+        names=names,
+        ion1_slot=np.asarray(i1, dtype=np.int64),
+        ion2_slot=np.asarray(i2, dtype=np.int64),
+        homonuclear=np.asarray(homo, dtype=bool),
+        k_density=np.asarray(kk),
+        partition_function=np.asarray(uu),
+        mass=np.asarray(mass),
+        included=np.asarray(included, dtype=bool),
+    )
+
+
+def _tables_on(mt: MoleculeTables, like):
+    """(i1, i2, k, homo [M, 1], included [M, 1]) on ``like``'s device."""
+    dev = like.device
+    return (
+        torch.as_tensor(mt.ion1_slot, device=dev),
+        torch.as_tensor(mt.ion2_slot, device=dev),
+        torch.as_tensor(mt.k_density, device=dev).to(like.dtype),
+        torch.as_tensor(mt.homonuclear, device=dev)[:, None],
+        torch.as_tensor(mt.included, device=dev)[:, None],
+    )
+
+
+def molecule_number_density(mt: MoleculeTables, state):
+    """[M, D] molecular number densities, each molecule's quadratic solved
+    independently against the full atomic reservoirs.
+
+    Homonuclear AA: n_AA = 2 N^2 / (k + 4N + sqrt(k (k + 8N)));
+    heteronuclear AB: n_AB = 2 N_A N_B / (k + N_A + N_B + sqrt(...)).
+    The conjugate forms stay exact where n_mol << N (the textbook
+    difference form cancels to 0 there), and the discriminants are scaled
+    by s = k + (constituent sum), because k (k + 8N) and k^2 overflow
+    float32 (k reaches ~1e22 at 10^4 K) while every scaled term is O(1).
+    """
+    i1, i2, k, homo, included = _tables_on(mt, state.ion_number_density)
+    n1 = state.ion_number_density[i1]  # [M, D]
+    n2 = state.ion_number_density[i2]
+
+    s_aa = k + 4.0 * n1
+    root_aa = torch.sqrt((k / s_aa) * ((k + 8.0 * n1) / s_aa))
+    n_homo = 2.0 * (n1 / s_aa) * n1 / (root_aa + 1.0)
+
+    s_ab = k + n1 + n2
+    disc = (k / s_ab) ** 2 + 2.0 * (k / s_ab) * ((n1 + n2) / s_ab) + (
+        (n1 - n2) / s_ab
+    ) ** 2
+    n_hetero = 2.0 * (n1 / s_ab) * n2 / (torch.sqrt(disc) + 1.0)
+
+    n_mol = torch.where(homo, n_homo, n_hetero)
+    n_mol = torch.clamp(n_mol, min=0.0)
+    return torch.where(included, n_mol, torch.zeros_like(n_mol))
+
+
+def _incidence(slots, n_slots, like):
+    """[S, M] 0/1 matrix: column m has its 1 in row slots[m]."""
+    inc = np.zeros((n_slots, len(slots)))
+    inc[np.asarray(slots), np.arange(len(slots))] = 1.0
+    return torch.as_tensor(inc, device=like.device).to(like.dtype)
+
+
+def _slot_sum(incidence, per_molecule):
+    """[S, D] sums of [M, D] rows into their constituent slots: the
+    product with a fixed 0/1 incidence matrix, as an elementwise product
+    and a sum over M (deterministic, no atomics, never TF32)."""
+    return (incidence[:, :, None] * per_molecule[None]).sum(dim=1)
+
+
+def molecule_number_density_coupled(mt: MoleculeTables, state, n_iter: int = 400,
+                                    damping: float = 0.5, return_aux: bool = False):
+    """[M, D] molecular densities from the coupled network (opt-in).
+
+    Find per-constituent-slot depletion factors x_s in (0, 1] with free
+    densities n_s = x_s N_s such that N_s = n_s + sum_m nu_{s,m} n_m,
+    n_m = n_A n_B / k_m (homonuclear n_A^2 / k_m, nu = 2), by a damped
+    exact-per-slot Jacobi sweep: holding the other slots fixed, slot s
+    solves N_s = n_s + 2 alpha_s n_s^2 + beta_s n_s with
+    alpha_s = sum_{homo m} 1/k_m and beta_s = sum_{hetero m} n_other/k_m,
+    x_s = 2 / (1 + beta_s + sqrt((1 + beta_s)^2 + 8 alpha_s N_s)).
+    A fixed ``n_iter`` damped iterations; ionization stays at the LTE
+    solution.  The per-slot sums are products with fixed host-built
+    incidence matrices [S, M].
+    """
+    n_res = state.ion_number_density  # [S, D] undepleted reservoirs
+    i1, i2, k, homo, included = _tables_on(mt, n_res)
+    n_slots = n_res.shape[0]
+    inc1 = _incidence(mt.ion1_slot, n_slots, n_res)
+    inc2 = _incidence(mt.ion2_slot, n_slots, n_res)
+    zero = torch.zeros_like(k)
+    homo_inv_k = torch.where(included & homo, 1.0 / k, zero)
+    alpha = _slot_sum(inc1, homo_inv_k)  # fixed over the iterations
+    hetero = included & ~homo
+
+    x = torch.ones_like(n_res)
+    for _ in range(n_iter):
+        n1 = x[i1] * n_res[i1]
+        n2 = x[i2] * n_res[i2]
+        beta = _slot_sum(inc1, torch.where(hetero, n2 / k, zero)) + _slot_sum(
+            inc2, torch.where(hetero, n1 / k, zero)
+        )
+        b1 = 1.0 + beta
+        x_new = 2.0 / (b1 + torch.sqrt(b1 * b1 + 8.0 * alpha * n_res))
+        x = (1.0 - damping) * x + damping * x_new
+
+    n1 = x[i1] * n_res[i1]
+    n2 = x[i2] * n_res[i2]
+    # (n1/k)*n2 keeps intermediates at O(max): n1*n2 overflows float32
+    n_m = torch.where(homo, (n1 / k) * n1, (n1 / k) * n2)
+    n_m = torch.clamp(torch.where(included, n_m, zero), min=0.0)
+    if return_aux:
+        return n_m, x
+    return n_m
+
+
+def coupled_network_residual(mt: MoleculeTables, state, x, n_m):
+    """Worst relative violation of per-slot conservation
+    N_s = x_s N_s + sum_m nu_{s,m} n_m over the slots of included
+    molecules (``x`` and ``n_m`` from
+    molecule_number_density_coupled(return_aux=True)); ~1e-11 where the
+    400-iteration sweep has converged."""
+    n_res = state.ion_number_density
+    _i1, _i2, _k, homo, included = _tables_on(mt, n_res)
+    n_slots = n_res.shape[0]
+    inc1 = _incidence(mt.ion1_slot, n_slots, n_res)
+    inc2 = _incidence(mt.ion2_slot, n_slots, n_res)
+    nu_m = torch.where(included, n_m.to(n_res.dtype), torch.zeros_like(n_m))
+    consumed = _slot_sum(inc1, torch.where(homo, 2.0 * nu_m, nu_m)) + _slot_sum(
+        inc2, torch.where(homo, torch.zeros_like(nu_m), nu_m)
+    )
+    live = mt.included.astype(float)
+    participates = torch.as_tensor(
+        (inc1.cpu().numpy() @ live + inc2.cpu().numpy() @ live) > 0, device=n_res.device
+    )
+    resid = torch.abs(n_res - x.to(n_res.dtype) * n_res - consumed)
+    resid = resid / torch.clamp(n_res, min=1e-300)
+    return torch.max(torch.where(participates[:, None], resid, torch.zeros_like(resid)))
+
+
+class MoleculeNumberDensity:
+    """Molecular number densities of a run: ``names`` [M] and ``values``
+    [M, D] (NumPy, depth 0 innermost), the JAX package's DataFrame as a
+    plain array."""
+
+    def __init__(self, names, values):
+        self.names = list(names)
+        self.values = values
+
+    def __getitem__(self, name):
+        return self.values[self.names.index(name)]
+
+
+def molecule_number_density_table(mt: MoleculeTables, state, coupled=False):
+    """The run's molecular densities (coupled network when ``coupled``),
+    warning when the coupled solve left a conservation residual above
+    COUPLED_RESIDUAL_WARN."""
+    if coupled:
+        n_m, x = molecule_number_density_coupled(mt, state, return_aux=True)
+        resid = float(coupled_network_residual(mt, state, x, n_m))
+        if resid > COUPLED_RESIDUAL_WARN:
+            import warnings
+
+            warnings.warn(
+                "coupled molecular network left a conservation residual of "
+                f"{resid:.2e} (> {COUPLED_RESIDUAL_WARN:g}): this atmosphere is "
+                "outside the validated envelope (2500-10000 K, rho <= 1e-5 "
+                "g/cm^3); densities may be unconverged",
+                stacklevel=2,
+            )
+    else:
+        n_m = molecule_number_density(mt, state)
+    return MoleculeNumberDensity(mt.names, n_m.detach().to("cpu", torch.float64).numpy())
+
+
+@dataclasses.dataclass
+class MoleculeLineData:
+    """Host-prepared molecular lines in the tracing window (VALD-style)."""
+
+    nu: np.ndarray  # [L]
+    molecule_index: np.ndarray  # [L] row into MoleculeTables
+    gf: np.ndarray  # [L] 10^log_gf
+    e_low_erg: np.ndarray  # [L]
+    e_up_erg: np.ndarray  # [L]
+    A_ul: np.ndarray  # [L]
+    stark: np.ndarray  # [L]
+    waals: np.ndarray  # [L]
+    mass: np.ndarray  # [L] molecule mass [g]
+
+    @property
+    def n_lines(self):
+        return len(self.nu)
+
+
+def prepare_molecule_line_data(atom_data, mt: MoleculeTables, nu_min,
+                               nu_max) -> MoleculeLineData:
+    """Molecular lines of ``atom_data.linelist_molecules`` in
+    [nu_min, nu_max], sorted by frequency; lines of molecules the tables
+    exclude are dropped."""
+    ll = atom_data.linelist_molecules
+    if ll is None:
+        raise ValueError("atom data has no linelist_molecules")
+    cols = dict(ll.columns)
+    cols["nu"] = C_CGS / (np.asarray(cols["wavelength"], dtype=float) * 1e-8)
+    if "e_up" not in cols:
+        cols["e_up"] = cols["e_low"] + (
+            H_CGS * C_CGS / (np.asarray(cols["wavelength"], dtype=float) * 1e-8)
+        ) / EV_TO_ERG
+    frame = Table(cols)
+    frame = frame.take(np.argsort(frame.nu, kind="quicksort"))
+    frame = frame.take((frame.nu >= nu_min) & (frame.nu <= nu_max))
+
+    index_map = {name: i for i, name in enumerate(mt.names)}
+    mol_index = np.array(
+        [index_map.get(str(m), -1) for m in frame.molecule], dtype=np.int64
+    )
+    # lines of unknown or excluded molecules would get mass 0 -> inf Doppler
+    keep = (mol_index >= 0) & mt.included[np.maximum(mol_index, 0)]
+    if not keep.all():
+        logger.warning(
+            "Dropping %d molecular lines of excluded/unknown molecules",
+            int((~keep).sum()),
+        )
+    frame = frame.take(keep)
+    mol_index = mol_index[keep]
+    return MoleculeLineData(
+        nu=frame.nu.astype(float),
+        molecule_index=mol_index,
+        gf=(10.0 ** frame.log_gf).astype(float),
+        e_low_erg=(frame.e_low * EV_TO_ERG).astype(float),
+        e_up_erg=(frame.e_up * EV_TO_ERG).astype(float),
+        A_ul=(10.0 ** frame.rad).astype(float),
+        stark=frame.stark.astype(float),
+        waals=frame.waals.astype(float),
+        mass=mt.mass[mol_index],
+    )
+
+
+def compute_molecule_line_quantities(mld: MoleculeLineData, mt: MoleculeTables,
+                                     state, temperatures, microturbulence_cgs,
+                                     broadening_flags, coupled: bool = False):
+    """(alpha, gamma, doppler) [L, D] for molecular lines.
+
+    alpha = C gf (n_mol / U_mol) e^{-beta E_low} (1 - e^{-h nu / k T});
+    gamma from the VALD columns: A_ul, the VALD Stark law, and van der
+    Waals only by the scaled 10^vdW law where the packed value is negative
+    (the Unsoeld path needs an atomic n_eff that molecular levels lack);
+    Doppler widths from the molecule mass.
+    """
+    from ..opacities.broadening import calc_doppler_width, calc_vald_stark_gamma
+
+    t = temperatures
+    dev, dtype = t.device, t.dtype
+
+    def col(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float64), device=dev).to(dtype)[:, None]
+
+    density_fn = molecule_number_density_coupled if coupled else molecule_number_density
+    n_mol = density_fn(mt, state)  # [M, D]
+    u_mol = torch.as_tensor(mt.partition_function, device=dev).to(dtype)
+    n_over_u = n_mol / u_mol
+
+    idx = torch.as_tensor(mld.molecule_index, device=dev)
+    nu = col(mld.nu)
+    boltz = torch.exp(-col(mld.e_low_erg) * state.beta[None, :])
+    stim = 1.0 - torch.exp(-H_CGS * nu / (K_B_CGS * t[None, :]))
+    alpha = ALPHA_COEFFICIENT * col(mld.gf) * n_over_u[idx] * boltz * stim
+
+    gamma = torch.zeros_like(alpha)
+    if "radiation" in broadening_flags:
+        gamma = gamma + col(mld.A_ul)
+    if "linear_stark" in broadening_flags or "quadratic_stark" in broadening_flags:
+        gamma = gamma + calc_vald_stark_gamma(
+            state.electron_densities[None, :], col(mld.stark), t[None, :]
+        )
+    if "van_der_waals" in broadening_flags:
+        vdw = col(mld.waals)
+        h1 = state.h_neutral_density
+        scaled = 10.0**vdw * (t[None, :] / 1e4) ** 0.38 * h1[None, :]
+        gamma = gamma + torch.where(vdw < 0, scaled, torch.zeros_like(scaled))
+
+    doppler = calc_doppler_width(nu, t[None, :], col(mld.mass), microturbulence_cgs)
+    return alpha, gamma, doppler

@@ -6,14 +6,21 @@ as in ``stardis_tpu/radiation_field/solver.py``:
 * segment optical depth tau = exp((ln a_k + ln a_{k+1})/2) * ds;
 * weights w0/w1/w2 in three tau regimes (Taylor below 5e-4, saturated
   from 50);
+* spherical models first sweep each chord inward (surface -> centre), with
+  the reference's wrap of tau[g-1] / source[g-1] at gap 0, and the result
+  seeds the outward sweep; the flux gets the per-model photospheric
+  correction (r_outer / r_ref)^2;
 * the depth sweep I_{k+1} = a_k I_k + b_k, a first-order recurrence: the
   JAX package runs it as an associative scan (a TPU way to parallelise a
   serial loop); here the plain version is a Python loop over depth and the
-  kernel (csrc/formal_solution.cu) a serial loop per (nu, theta) thread.
+  kernel (csrc/formal_solution.cu) a serial loop per (model, nu, theta)
+  thread.
 
-``raytrace`` dispatches on the device of its tensors: the plain version on
-the CPU, the kernel on a CUDA device.  Plane-parallel (outward) rays only;
-the spherical inward sweep is ROADMAP Queue 1, "spherical geometry".
+Every function takes a leading model axis: alphas and source [B, D, N],
+ray distances [B, G, T], one correction per model.  ``raytrace`` also
+takes a single model ([D, N], [G, T]) and returns it without the axis.
+It dispatches on the device of its tensors: the plain version on the CPU,
+the kernel on a CUDA device.
 """
 
 from __future__ import annotations
@@ -36,6 +43,21 @@ def gauss_legendre_thetas(num_of_thetas):
     thetas = x / 2.0 + 0.5 * np.pi / 2.0
     weights = w * np.pi / 2.0
     return thetas, weights
+
+
+def calculate_spherical_ray(thetas, depth_points_radii):
+    """Chord lengths [G, T] through the shells for each impact parameter
+    b = r_outer sin(theta) (host NumPy); 0 where a chord misses a shell."""
+    radii = np.asarray(depth_points_radii)
+    out = np.zeros((len(radii) - 1, len(thetas)))
+    for ti, theta in enumerate(np.asarray(thetas)):
+        b = radii[-1] * np.sin(theta)
+        with np.errstate(invalid="ignore"):
+            z = np.sqrt(radii**2 - b**2)  # NaN where the ray misses the shell
+        dz = np.diff(z)
+        good = ~np.isnan(dz)
+        out[good, ti] = dz[good]
+    return out
 
 
 def calc_weights(delta_tau):
@@ -65,31 +87,84 @@ def _safe(tau):
 
 
 def compute_taus(alphas, ray_dist):
-    """tau[..., g, n] = exp(mean(ln alpha)) * ds_g; ray_dist is [G] or
-    [T, G] (one row per angle).  Zero distances give tau = 0."""
+    """tau[..., g, n] = exp(mean(ln alpha)) * ds_g from alphas [..., D, N]
+    and ray_dist [..., G] (broadcast against each other).  Zero distances
+    give tau = 0."""
     log_a = torch.log(alphas)
-    mean_alphas = torch.exp(0.5 * (log_a[1:] + log_a[:-1]))  # [G, N]
+    mean_alphas = torch.exp(0.5 * (log_a[..., 1:, :] + log_a[..., :-1, :]))
     return mean_alphas * ray_dist[..., :, None]
 
 
-def single_theta_trace(source, taus):
-    """Intensity at every depth point for each ray angle (outward,
-    plane-parallel).
+def _inward_intensity(s, taus, w0, w1, w2):
+    """Intensity at gap 0 after the spherical inward sweep
+    I[g] = a'_g I[g+1] + b'_g, g = G-1 .. 0, from I = 0 at the surface.
 
-    source : [D, N] (D = G + 1); taus : [..., G, N]
+    At g = 0 tau[g-1] wraps to tau[G-1] and source[g-1] to source[G], the
+    last element of the FULL source array: the reference's negative
+    indexing, kept on purpose.  A gap with tau[g] = 0 or tau[g-1] = 0
+    passes the intensity through."""
+    n_gaps = taus.shape[-2]
+    tau_g = taus
+    tau_gm1 = torch.roll(taus, 1, dims=-2)
+    s_gm1 = torch.roll(s, 1, dims=-2)[..., :-1, :]
+    s_g = s[..., :-1, :]
+    s_gp1 = s[..., 1:, :]
+
+    denom = tau_g + tau_gm1
+    second = (
+        w1
+        * (
+            (s_g - s_gm1) * (tau_g / _safe(tau_gm1))
+            - (s_g - s_gp1) * (tau_gm1 / _safe(tau_g))
+        )
+        / _safe(denom)
+    )
+    third = (
+        w2
+        * ((s_gm1 - s_g) / _safe(tau_gm1) + (s_gp1 - s_g) / _safe(tau_g))
+        / _safe(denom)
+    )
+    zero = (tau_g == 0.0) | (tau_gm1 == 0.0)
+    return _sweep(zero, 1.0 - w0, (w0 * s_g, second, third), range(n_gaps - 1, -1, -1),
+                  torch.zeros_like(third[..., 0, :]))
+
+
+def _sweep(zero, a, terms, gaps, intensity, trail=None):
+    """The recurrence I <- a I + t1 + t2 + t3 over ``gaps`` in order, summed
+    in the reference's order; a gap where ``zero`` passes I through.
+    ``trail`` collects the intensity after each gap."""
+    t1, t2, t3 = terms
+    for g in gaps:
+        step = a[..., g, :] * intensity + t1[..., g, :] + t2[..., g, :] + t3[..., g, :]
+        intensity = torch.where(zero[..., g, :], intensity, step)
+        if trail is not None:
+            trail.append(intensity)
+    return intensity
+
+
+def single_theta_trace(source, taus, inward_rays=False):
+    """Intensity at every depth point along each ray.
+
+    source : [..., D, N] (D = G + 1), broadcast against taus
+    taus : [..., G, N]
+    inward_rays : spherical chords get the surface->centre sweep first
     returns I : [..., D, N]
     """
     n_gaps = taus.shape[-2]
     w0, w1, w2 = calc_weights(taus)
     s = source
 
+    if inward_rays:
+        i_inner = _inward_intensity(s, taus, w0, w1, w2)
+    else:
+        i_inner = torch.zeros_like(taus[..., 0, :] * s[..., 0, :])
+
     # gaps 0 .. G-2: parabolic interior formula
     tau_k = taus[..., : n_gaps - 1, :]
     tau_kp1 = taus[..., 1:n_gaps, :]
-    s_k = s[: n_gaps - 1]
-    s_kp1 = s[1:n_gaps]
-    s_kp2 = s[2 : n_gaps + 1]
-    w0_i = w0[..., : n_gaps - 1, :]
+    s_k = s[..., : n_gaps - 1, :]
+    s_kp1 = s[..., 1:n_gaps, :]
+    s_kp2 = s[..., 2 : n_gaps + 1, :]
     w1_i = w1[..., : n_gaps - 1, :]
     w2_i = w2[..., : n_gaps - 1, :]
 
@@ -107,72 +182,99 @@ def single_theta_trace(source, taus):
         * ((s_kp2 - s_kp1) / _safe(tau_kp1) + (s_k - s_kp1) / _safe(tau_k))
         / _safe(denom)
     )
-    zero_i = tau_k == 0.0
-    a_interior = torch.where(zero_i, torch.ones_like(w0_i), 1.0 - w0_i)
-    b_interior = torch.where(
-        zero_i, torch.zeros_like(w0_i), w0_i * s_kp1 + second + third
-    )
-
     # last gap: constant-source boundary jump
-    tau_last = taus[..., -1, :]
-    zero_l = tau_last == 0.0
-    third_last = w2[..., -1, :] * (s[-2] - s[-1]) / _safe(tau_last) ** 2
-    a_last = torch.where(zero_l, torch.ones_like(tau_last), 1.0 - w0[..., -1, :])
-    b_last = torch.where(
-        zero_l, torch.zeros_like(tau_last), w0[..., -1, :] * s[-1] + third_last
-    )
+    tau_last = taus[..., -1:, :]
+    third_last = w2[..., -1:, :] * (s[..., -2:-1, :] - s[..., -1:, :]) / _safe(tau_last) ** 2
 
-    a = torch.cat([a_interior, a_last[..., None, :]], dim=-2)  # [..., G, N]
-    b = torch.cat([b_interior, b_last[..., None, :]], dim=-2)
-    intensity = [torch.zeros_like(b[..., 0, :])]
-    for k in range(n_gaps):
-        intensity.append(a[..., k, :] * intensity[-1] + b[..., k, :])
+    zero = taus == 0.0
+    terms = (
+        w0 * s[..., 1:, :],
+        torch.cat([second, torch.zeros_like(third_last)], dim=-2),
+        torch.cat([third, third_last], dim=-2),
+    )
+    intensity = [i_inner]
+    _sweep(zero, 1.0 - w0, terms, range(n_gaps), i_inner, trail=intensity)
     return torch.stack(intensity, dim=-2)
 
 
-def raytrace(alphas, source, ray_distances, weights, photospheric_correction=None,
-             track_individual_intensities=False):
-    """F_nu [D, N] = sum_theta w_theta I_theta, and I_nus [D, N, T] when
+def _corrections(photospheric_correction, n_models, like):
+    """None, a number or one value per model -> [B] tensor like ``like``."""
+    if photospheric_correction is None:
+        return torch.ones(n_models, dtype=like.dtype, device=like.device)
+    corr = torch.as_tensor(photospheric_correction, dtype=like.dtype, device=like.device)
+    return corr.expand(n_models) if corr.ndim == 0 else corr
+
+
+def _as_batch(alphas, source, ray_distances):
+    """(single, alphas, source, rays) with a leading model axis added to a
+    single model's [D, N] / [G, T] arrays."""
+    if alphas.ndim == 2:
+        return True, alphas[None], source[None], ray_distances[None]
+    return False, alphas, source, ray_distances
+
+
+def _strip(single, f_nu, i_nus):
+    if single:
+        return f_nu[0], (None if i_nus is None else i_nus[0])
+    return f_nu, i_nus
+
+
+def raytrace(alphas, source, ray_distances, weights, inward_rays=False,
+             photospheric_correction=None, track_individual_intensities=False):
+    """F_nu = correction * sum_theta w_theta I_theta, and I_nus when
     tracked (else None).
 
-    alphas, source : [D, N]; ray_distances : [G, T]; weights : [T]
+    alphas, source : [B, D, N], or [D, N] for one model
+    ray_distances : [B, G, T], or [G, T]
+    weights : [T]
+    photospheric_correction : None, a number, or [B] (one per model)
+    returns F_nu [B, D, N] and I_nus [B, D, N, T] (without B for one model)
     """
-    if alphas.device.type == "cuda":
-        return raytrace_cuda(
-            alphas, source, ray_distances, weights, photospheric_correction,
-            track_individual_intensities,
-        )
     if alphas.device.type == "cpu":
         return raytrace_plain(
-            alphas, source, ray_distances, weights, photospheric_correction,
-            track_individual_intensities,
+            alphas, source, ray_distances, weights, inward_rays,
+            photospheric_correction, track_individual_intensities,
         )
-    raise ValueError(f"no formal-solution path for device {alphas.device}")
+    if alphas.device.type != "cuda":
+        raise ValueError(f"no formal-solution path for device {alphas.device}")
+    single, alphas, source, ray_distances = _as_batch(alphas, source, ray_distances)
+    return _strip(single, *raytrace_cuda(
+        alphas, source, ray_distances, weights, inward_rays,
+        photospheric_correction, track_individual_intensities,
+    ))
 
 
-def raytrace_plain(alphas, source, ray_distances, weights,
+def raytrace_plain(alphas, source, ray_distances, weights, inward_rays=False,
                    photospheric_correction=None,
                    track_individual_intensities=False):
-    """Plain torch version: all angles at once, a Python loop over depth."""
-    taus = compute_taus(alphas, ray_distances.t())  # [T, G, N]
-    i_nus = single_theta_trace(source, taus)  # [T, D, N]
-    f_nu = torch.tensordot(weights.to(i_nus.dtype), i_nus, dims=1)
+    """Plain torch version (shapes as ``raytrace``): all models and angles
+    at once, a Python loop over depth, then the theta sum in theta order
+    (as the kernel sums it)."""
+    single, alphas, source, ray_distances = _as_batch(alphas, source, ray_distances)
+    taus = compute_taus(alphas[:, None], ray_distances.transpose(1, 2))  # [B, T, G, N]
+    i_nus = single_theta_trace(source[:, None], taus, inward_rays)  # [B, T, D, N]
+    w = weights.to(i_nus.dtype)
+    f_nu = torch.zeros_like(i_nus[:, 0])
+    for t in range(i_nus.shape[1]):
+        f_nu = f_nu + w[t] * i_nus[:, t]
     if photospheric_correction is not None:
-        f_nu = f_nu * photospheric_correction
+        corr = _corrections(photospheric_correction, alphas.shape[0], f_nu)
+        f_nu = f_nu * corr[:, None, None]
     if track_individual_intensities:
-        return f_nu, torch.movedim(i_nus, 0, -1)  # [D, N, T]
-    return f_nu, None
+        return _strip(single, f_nu, torch.movedim(i_nus, 1, -1))  # [B, D, N, T]
+    return _strip(single, f_nu, None)
 
 
-_TRACE_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+_TRACE_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
-def raytrace_cuda(alphas, source, ray_distances, weights,
+def raytrace_cuda(alphas, source, ray_distances, weights, inward_rays=False,
                   photospheric_correction=None,
                   track_individual_intensities=False):
-    """Kernel 2 (csrc/formal_solution.cu) on CUDA tensors; raises on
-    anything the kernel does not take."""
-    n_depth, n_nu = alphas.shape
+    """Kernel 2 (csrc/formal_solution.cu) on CUDA tensors [B, D, N] /
+    [B, G, T]; raises on anything the kernel does not take.  Spherical
+    models (``inward_rays``) launch the kernel's inward-sweep variant."""
+    n_models, n_depth, n_nu = alphas.shape
     dtype = alphas.dtype
     tensors = (alphas, source, ray_distances, weights)
     if dtype not in (torch.float32, torch.float64):
@@ -182,32 +284,38 @@ def raytrace_cuda(alphas, source, ray_distances, weights,
     if any(not t.is_cuda or t.device != alphas.device for t in tensors):
         raise ValueError("formal_solution kernel: all tensors must be on one CUDA device")
     if n_depth < 2 or source.shape != alphas.shape:
-        raise ValueError("formal_solution kernel: alphas/source must be [D >= 2, N]")
+        raise ValueError("formal_solution kernel: alphas/source must be [B, D >= 2, N]")
     n_theta = weights.shape[0]
-    if ray_distances.shape != (n_depth - 1, n_theta):
-        raise ValueError("formal_solution kernel: ray_distances must be [D - 1, T]")
+    if ray_distances.shape != (n_models, n_depth - 1, n_theta):
+        raise ValueError("formal_solution kernel: ray_distances must be [B, D - 1, T]")
+    correction = _corrections(photospheric_correction, n_models, alphas).contiguous()
+    if correction.shape != (n_models,):
+        raise ValueError("formal_solution kernel: one photospheric correction per model")
     alphas = alphas.contiguous()
     source = source.contiguous()
     ray_distances = ray_distances.contiguous()
     weights = weights.contiguous()
     # pass-1 buffer; it is the I_nus output when tracked
-    intensity = torch.empty((n_depth, n_nu, n_theta), dtype=dtype, device=alphas.device)
-    f_nu = torch.empty((n_depth, n_nu), dtype=dtype, device=alphas.device)
-    correction = 1.0 if photospheric_correction is None else float(photospheric_correction)
-    real = ctypes.c_float if dtype == torch.float32 else ctypes.c_double
+    intensity = torch.empty((n_models, n_depth, n_nu, n_theta), dtype=dtype,
+                            device=alphas.device)
+    f_nu = torch.empty((n_models, n_depth, n_nu), dtype=dtype, device=alphas.device)
     suffix = "f32" if dtype == torch.float32 else "f64"
-    fn = _cuda.bind(
-        "formal_solution", f"formal_solution_{suffix}",
-        _TRACE_ARGS + [real, ctypes.c_void_p],
-    )
+    fn = _cuda.bind("formal_solution", f"formal_solution_{suffix}", _TRACE_ARGS)
     p = _cuda.ptr
     status = fn(
-        p(alphas), p(source), p(ray_distances), p(weights), p(intensity), p(f_nu),
-        n_depth, n_nu, n_theta, correction, _cuda.stream_ptr(alphas.device),
+        p(alphas), p(source), p(ray_distances), p(weights), p(correction),
+        p(intensity), p(f_nu), n_models, n_depth, n_nu, n_theta, int(bool(inward_rays)),
+        _cuda.stream_ptr(alphas.device),
     )
-    raytrace_cuda.launches += 1
+    if inward_rays:
+        raytrace_cuda.inward_launches += 1
+    else:
+        raytrace_cuda.launches += 1
     _cuda.check("formal_solution", status)
     return f_nu, (intensity if track_individual_intensities else None)
 
 
+#: launches of the outward (plane-parallel) and inward-sweep (spherical)
+#: variants of Kernel 2
 raytrace_cuda.launches = 0
+raytrace_cuda.inward_launches = 0

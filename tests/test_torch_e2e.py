@@ -132,31 +132,53 @@ def _base_config(tmp_path):
     return _config(model, vald=False)
 
 
+def _write_hminus_bf(path):
+    lam = np.linspace(2000.0, 15000.0, 50)
+    sig = 4e-17 * np.exp(-(((lam - 8500.0) / 4000.0) ** 2))
+    path.write_text("".join(f"{wl:.1f},{s:.4e}\n" for wl, s in zip(lam, sig)))
+    return str(path)
+
+
 @pytest.mark.parametrize(
-    "edit",
+    "edit, ported_key",
     [
-        lambda c: c["opacity"]["line"].update(include_molecules=True),
-        lambda c: c["opacity"]["line"].update(window_mode="accuracy"),
-        lambda c: c["opacity"].update(file={"Hminus_bf": "x.dat"}),
-        lambda c: c["input_model"].update(type="mesa"),
+        (lambda c, d: c["opacity"]["line"].update(include_molecules=True), None),
+        (lambda c, d: c["opacity"]["line"].update(window_mode="accuracy"), None),
+        (lambda c, d: c["opacity"].update(file={"Hminus_bf": _write_hminus_bf(d / "hm.dat")}),
+         "alpha_file_Hminus_bf"),
+        (lambda c, d: c["input_model"].update(type="mesa"), "raises"),
     ],
     ids=["molecules", "accuracy", "file", "mesa"],
 )
-def test_out_of_slice_branches_raise(tmp_path, edit):
+def test_out_of_slice_branches_raise(tmp_path, edit, ported_key):
+    """Molecules, accuracy windows and file opacities are in the slice now:
+    those branches run; MESA models still raise naming ROADMAP.md."""
     cfg = _base_config(tmp_path)
-    edit(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        stardis_tpu_torch.run_stardis(cfg, tu.Quantity(np.arange(6560.0, 6561.0, 0.5), tu.AA))
+    cfg["result_options"] = {"return_radiation_field": True, "return_plasma": True}
+    edit(cfg, tmp_path)
+    lam = tu.Quantity(np.arange(6560.0, 6561.0, 0.5), tu.AA)
+    if ported_key == "raises":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            stardis_tpu_torch.run_stardis(cfg, lam)
+        return
+    out = stardis_tpu_torch.run_stardis(cfg, lam)
+    assert np.isfinite(np.asarray(out.spectrum_nu)).all()
+    if ported_key:
+        assert ported_key in out.stellar_radiation_field.opacities.opacities_dict
+    if cfg["opacity"]["line"].get("include_molecules"):
+        densities = out.stellar_plasma.molecule_number_density
+        assert "H2" in densities.names and densities.values.shape[1] == 56
 
 
 def test_spherical_and_partition_options_raise(tmp_path):
+    """Spherical models run (the inward sweep is ported); segments and
+    mesh= still raise."""
     lam = tu.Quantity(np.arange(6560.0, 6561.0, 0.5), tu.AA)
     sph = str(tmp_path / "sph.mod")
     write_marcs_file(sph, spherical=True)
     cfg = _base_config(tmp_path)
     cfg["input_model"]["fname"] = sph
-    with pytest.raises(NotImplementedError, match="spherical"):
-        stardis_tpu_torch.run_stardis(cfg, lam)
+    assert (np.asarray(stardis_tpu_torch.run_stardis(cfg, lam).spectrum_nu) > 0).all()
     with pytest.raises(NotImplementedError, match="segments"):
         stardis_tpu_torch.run_stardis(_base_config(tmp_path), lam, nu_segments=2)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
@@ -171,3 +193,26 @@ def test_cuda_device_without_gpu_raises(tmp_path):
     lam = tu.Quantity(np.arange(6560.0, 6561.0, 0.5), tu.AA)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         stardis_tpu_torch.run_stardis(_base_config(tmp_path), lam, device="cuda")
+
+
+def test_tf32_switch_is_scoped_to_the_bf_product(tmp_path, monkeypatch):
+    """run_simulation turns TF32 off for the bf product only and leaves the
+    process-wide switch as it found it."""
+    from stardis_tpu_torch import pipeline as tpipe
+    from stardis_tpu_torch.base import parse_config_to_model
+    from stardis_tpu_torch.opacities import continuum as tcont
+
+    seen = []
+    real_bf = tcont.calc_alpha_bf_hydrogenic
+
+    def spy(*args, **kwargs):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return real_bf(*args, **kwargs)
+
+    monkeypatch.setattr(tcont, "calc_alpha_bf_hydrogenic", spy)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    config, adata, model = parse_config_to_model(_base_config(tmp_path))
+    nus = tu.Quantity(np.arange(6560.0, 6562.0, 0.5), tu.AA).to(tu.Hz, tu.spectral()).value
+    tpipe.run_simulation(tpipe.build_simulation_plan(config, adata, model, nus))
+    assert seen == [False]
+    assert torch.backends.cuda.matmul.allow_tf32 is True

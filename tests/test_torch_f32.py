@@ -53,8 +53,9 @@ def test_line_accumulation_f32_tracks_f64(n_depth):
     out = {}
     for dtype in (torch.float64, torch.float32):
         t = lambda a: torch.from_numpy(np.asarray(a)).to(dtype)  # noqa: E731
-        out[dtype] = tlk.accumulate_line_opacity(
-            t(nus - nu_ref), t(line_nu - nu_ref), centers, t(alpha), t(gamma), t(doppler), d_nu
+        iw = tlk.window_half_widths(t(alpha), t(gamma), t(doppler), d_nu, n_nu)
+        out[dtype] = tlk.accumulate_line_windows(
+            t(nus - nu_ref), t(line_nu - nu_ref), centers, t(alpha), t(gamma), t(doppler), iw
         ).numpy()
     assert out[torch.float32].dtype == np.float32
     _assert_f32_tracks_f64(out[torch.float32], out[torch.float64])
