@@ -45,14 +45,52 @@ Phases (any failure exits non-zero and prints no result):
      and every member against run_stardis of that model (rtol 1e-5);
      atmospheres/s; a profiled run; and a 4-member
      batch of spherical giants with file opacities against the individual
-     runs (per-model corrections and cross-sections).
+     runs (per-model corrections and cross-sections);
+  9. the memory model: run_stardis on the Sim100AA configuration with 10k
+     lines over 4000-7000 AA at 125k, 250k, 500k and 1M points, with and
+     without return_radiation_field, and on the spherical giant (three
+     file tables, molecules, 10k + 2k lines) at 250k points with and
+     without it and at 1M without: the measured peak
+     (torch.cuda.max_memory_allocated) beside util.memory's estimate, which
+     must be at least the peak and at most 1.5x it; then nu_segments="auto"
+     at 1M points under a budget of 40 % of the unsegmented peak, and at
+     250k points with return_radiation_field under the unsegmented tracked
+     run's peak: K > 1, peak under the budget and within the estimate's
+     bound, F_nu (and I_nu, the total and every opacity) equal to the
+     unsegmented run (rtol 1e-6);
+ 10. Kernel 1's range launch at the Sim100AA shape in K = 3 ranges of the
+     10,000-point grid: equal bit for bit to the full launch (float32 and
+     float64), against its plain version at rtol 1e-12 (float64), timed
+     (float32); then the flagship, 1M points (4000-7000 AA) x 100k lines,
+     through run_stardis(nu_segments="auto") and nu_segments=4: K chosen,
+     cold and warm walls, per-stage times, peak memory beside the
+     estimate, the segments' device times; F_nu finite, positive and equal
+     at rtol 1e-6; on the flagship's own prepared inputs, Kernel 1 against
+     its plain version on 512-pixel ranges at both grid ends, across each
+     K = 4 boundary and across a deep window's edge (float32 at 1e-4 of
+     each row's maximum, float64 at rtol 1e-12), and Kernel 2 on the whole
+     [56, 1M] x 20 theta against its plain version (rtol 1e-5);
+ 11. serving: SpectralService on Sim100AA answering Teff 5777, 6300 and
+     9000 K, each against run_stardis (rtol 1e-5), warm per-request walls
+     beside run_stardis's; the same requests through nu_segments=3 against
+     the unsegmented service (rtol 1e-6); a spherical-giant service with
+     file tables answering a 4200 K request (one sigma re-interpolation)
+     against run_stardis (rtol 1e-5); synthesize_batch of the 16 batch
+     models against run_batch (rtol 1e-6); one profiled request;
+ 12. a grid scan of the 16 batch models in chunks of 8, stopped after one
+     chunk and resumed, equal bit for bit to an uninterrupted scan; and
+     `python -m stardis_tpu_torch` on a JSON Sim100AA config with
+     --segments auto --ascii, against run_stardis (rtol 1e-6).
 
 The kernels build in parallel (one nvcc per source).  The last line of
 standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 the line before it is the card's name and power limit, and the line
 before that holds each kernel's launches (summed over the main paths of
-phases 5, 7 and 8), error and times.
+phases 5 and 7-12; the CLI runs in a process of its own and is not
+counted), error, times and bound (the larger of the operations
+over the float32 peak and the bytes over the memory rate of an H100 SXM,
+from this run's inputs).
 """
 
 import copy
@@ -80,7 +118,43 @@ BATCH_LINES = 20_000
 BATCH_LINE_RANGE = (6540.0, 6590.0)
 BATCH_LAMBDA = (6560.0, 6570.0, 0.01)  # AA: 1,000 points
 GIANT_BATCH = [(3900.0, 1.5e12), (4000.0, 2.0e12), (4200.0, 2.5e12), (4500.0, 3.5e12)]
-KERNELS = ("line_opacity", "formal_solution", "formal_solution_inward")
+FLAGSHIP_LAMBDA = (4000.0, 7000.0)  # AA, np.linspace over FLAGSHIP_POINTS (bench.py)
+FLAGSHIP_POINTS = 1_000_000
+FLAGSHIP_LINE_RANGE = (3950.0, 7050.0)
+FLAGSHIP_SEGMENTS = 4
+# Kernel 1 is held against its plain version at the flagship on ranges of
+# this many pixels; the plain version takes line chunks of up to
+# FLAGSHIP_PLAIN_BUDGET / (56 depths x the chunk's reach on the 1M grid),
+# ~1024 lines where the reach spans the grid
+FLAGSHIP_CHECK_PIXELS = 512
+FLAGSHIP_PLAIN_BUDGET = 1 << 36
+# Kernel 2's plain version runs on column blocks of this many pixels
+FLAGSHIP_TRACE_BLOCK = 125_000
+MEMORY_POINTS = (125_000, 250_000, 500_000, 1_000_000)
+MEMORY_LINES = 10_000
+MEMORY_BUDGET_SHARE = 0.4
+# the giant's memory runs: (points, return_radiation_field), with
+# MEMORY_LINES atomic and MEMORY_MOL_LINES molecular lines
+MEMORY_GIANT_RUNS = ((250_000, False), (250_000, True), (1_000_000, False))
+MEMORY_MOL_LINES = 2_000
+# the budgeted segmented run with return_radiation_field
+MEMORY_TRACKED_POINTS = 250_000
+RANGE_SEGMENTS = 3
+SERVE_TEFFS = (5777.0, 6300.0, 9000.0)
+SERVE_GIANT_TEFF = 4200.0
+KERNELS = ("line_opacity", "line_opacity_range", "formal_solution", "formal_solution_inward")
+# published peaks of an H100 SXM at 700 W (float32 outside the tensor
+# cores, HBM3), the bound_ms of each kernel
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+# floating-point operations of one in-window Voigt evaluation in Kernel 1,
+# counted from csrc/line_opacity.cu by Humlicek region (the shared x, y,
+# phi and sum: 8; |x| + y and z^2: 7; then the region's own chain)
+VOIGT_FLOPS = {"I": 25, "II": 39, "III": 87, "IV": 134}
+# operations of one depth step of one ray in Kernel 2, counted from
+# csrc/formal_solution.cu (tau 6, weights 8, the parabolic terms 17,
+# the recurrence 6); the inward sweep repeats it per gap
+TRACE_STEP_FLOPS = 37
 
 
 def log(msg):
@@ -163,9 +237,83 @@ def device_busy(torch, fn):
     return wall, busy_us * 1e-6, len(spans)
 
 
-def cuda_ms(torch, fn, reps):
-    """Mean milliseconds per call over ``reps`` warm calls (CUDA events)."""
-    fn()
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the larger of the operations over the float32
+    peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def voigt_evaluations(nus, line_nu, centers, gamma, doppler, iw):
+    """In-window Voigt evaluations of Kernel 1 by Humlicek region, for
+    one model: nus [N] descending, line_nu / centers [L], gamma, doppler,
+    iw [L, D] (host, float64).  A pair (line, depth, pixel) is in window when
+    -iw <= p - centre < iw; its region follows from |x| + y (I above 15,
+    II above 5.5) and, below 5.5, from y >= 0.195 |x| - 0.176 (III, else
+    IV), with x = (nu_p - nu_l) / doppler and y = gamma / (sqrt(pi) pi) /
+    doppler.  Pixels within a distance of nu_l are counted by binary search
+    on the grid."""
+    import numpy as np
+
+    n = len(nus)
+    asc = nus[::-1]
+    c = centers[:, None]
+    lo, hi = np.clip(c - iw, 0, n), np.clip(c + iw, 0, n)  # window [lo, hi)
+    y = gamma / (np.sqrt(np.pi) * np.pi) / doppler
+    nu = line_nu[:, None]
+
+    def within(half):  # in-window pixels with |x| <= half (half < 0: none)
+        r = np.where(half >= 0, half, np.nan) * doppler
+        a = n - np.searchsorted(asc, (nu + r).ravel(), "right").reshape(r.shape)
+        b = n - np.searchsorted(asc, (nu - r).ravel(), "left").reshape(r.shape)
+        count = np.clip(np.minimum(hi, b) - np.maximum(lo, a), 0, None)
+        return int(np.where(half >= 0, count, 0).sum())
+
+    total = int(np.clip(hi - lo, 0, None).sum())
+    core15, core55 = within(15.0 - y), within(5.5 - y)
+    region3 = within(np.minimum(5.5 - y, (y + 0.176) / 0.195))
+    return {"I": total - core15, "II": core15 - core55, "III": region3,
+            "IV": core55 - region3}
+
+
+def line_bound(evaluations, n_models, n_lines, n_depth, n_out, itemsize):
+    """Kernel 1's bound: the Voigt operations of these evaluations, or
+    reading the [B, D, L] line arrays (three floats and the int32 window),
+    the lines and the range of the grid once and writing [B, D, n_out]."""
+    flops = sum(VOIGT_FLOPS[k] * v for k, v in evaluations.items())
+    nbytes = (n_models * n_depth * n_lines * (3 * itemsize + 4) + n_lines * (itemsize + 4)
+              + n_out * itemsize + n_models * n_depth * n_out * itemsize)
+    return bound(flops, nbytes)
+
+
+def trace_bound(n_models, n_depth, n_nu, n_theta, itemsize, inward):
+    """Kernel 2's bound: the depth steps of every ray (twice with the
+    inward sweep) and the theta sum, or reading alpha and source and
+    writing F_nu once."""
+    rays = n_models * n_nu * n_theta
+    flops = rays * (n_depth - 1) * TRACE_STEP_FLOPS * (2 if inward else 1)
+    flops += 2 * n_models * n_depth * n_nu * n_theta
+    nbytes = 3 * n_models * n_depth * n_nu * itemsize
+    return bound(flops, nbytes)
+
+
+def peak_bytes(torch, fn):
+    """(peak device bytes allocated by ``fn`` over what was allocated
+    before it, fn's result)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base, out
+
+
+def cuda_ms(torch, fn, reps, warm=True):
+    """Mean milliseconds per call over ``reps`` calls (CUDA events), after
+    one warm-up call unless ``warm`` is False."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -199,9 +347,13 @@ def main():
     from stardis_tpu_torch.opacities.lines import synth_linelist, synth_molecule_linelist
     from stardis_tpu_torch.pipeline import (
         build_simulation_plan,
+        continuum_batch,
+        device_constants,
+        prepare_lines,
         run_simulation,
         spectrum_batch,
         stage_plasma_and_lines,
+        stage_spectrum,
     )
     from stardis_tpu_torch.radiation_field import solver
     from stardis_tpu_torch.radiation_field.blackbody import blackbody_flux_at_nu
@@ -256,7 +408,8 @@ def main():
     def line_inputs(dtype, line_idx=None):
         temps = torch.as_tensor(plan.temperatures, device=dev).to(dtype)
         n_elem = torch.as_tensor(plan.n_elem, device=dev).to(dtype)
-        _, quants = stage_plasma_and_lines(plan, temps, n_elem)
+        _, quants = stage_plasma_and_lines(plan, temps, n_elem,
+                                           device_constants(plan, dtype, dev))
         alpha, gamma, doppler = quants["atomic"]
         nu_ref = float(plan.tracing_nus[len(plan.tracing_nus) // 2])
         line_nu = plan.line_data.nu
@@ -271,6 +424,10 @@ def main():
         iw = lk.window_half_widths(alpha, gamma, doppler, plan.d_nu, len(grid))
         return args, iw
 
+    def kernel1(args, iw):
+        # Kernel 1 as the main path calls it: layout, then one launch
+        return lk.line_opacity_range(lk.prepare_line_opacity(*args, iw))
+
     report = {}
 
     # --- 3. Kernel 1 against its plain version -----------------------------
@@ -279,7 +436,7 @@ def main():
         subset = torch.linspace(0, n_all - 1, N_LINES_KERNEL_CHECK).round().long().unique()
         for dtype in (torch.float64, torch.float32):
             args, iw = line_inputs(dtype, subset.numpy())
-            kern = lk.accumulate_line_windows(*args, iw)
+            kern = kernel1(args, iw)
             plain = lk.accumulate_line_opacity_plain(*args, iw)
             torch.cuda.synchronize()
             if dtype == torch.float64:
@@ -296,14 +453,14 @@ def main():
                     failures.append(f"kernel 1 f32 row err {row:.3e}")
         # times at the main path's shape (all lines in the window, float32)
         args, iw = line_inputs(torch.float32)
-        kern = lk.accumulate_line_windows(*args, iw)
+        kern = kernel1(args, iw)
         t_plain0 = time.perf_counter()
         plain = lk.accumulate_line_opacity_plain(*args, iw)
         torch.cuda.synchronize()
         plain_first_s = time.perf_counter() - t_plain0
         err = (kern - plain).abs().max().item()
         row, rows_ok = row_err(kern, plain)
-        ms = cuda_ms(torch, lambda: lk.accumulate_line_windows(*args, iw), 5)
+        ms = cuda_ms(torch, lambda: kernel1(args, iw), 5)
         plain_ms = cuda_ms(torch, lambda: lk.accumulate_line_opacity_plain(*args, iw), 1)
         # float32 sums of ~48k lines in two orders (the kernel serially per
         # pixel, the plain version chunk by chunk) differ by ~sqrt(L) ulp of
@@ -313,7 +470,17 @@ def main():
             f"max abs err {err:.3e}, max row err / row max {row:.3e} (bound 1e-4)")
         if not (row <= 1e-4 and rows_ok):
             failures.append(f"kernel 1 f32 full-slice row err {row:.3e}")
-        report["line_opacity"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        evals = voigt_evaluations(
+            plan.tracing_nus, plan.line_data.nu, lk.line_center_indices(
+                plan.tracing_nus, plan.line_data.nu),
+            args[4].double().cpu().numpy(), args[5].double().cpu().numpy(),
+            iw.cpu().numpy())
+        bound_ms, bound_by = line_bound(evals, 1, n_all, iw.shape[1], len(plan.tracing_nus), 4)
+        log(f"kernel 1 in-window evaluations by Voigt region: {evals}; bound {bound_ms:.3f} ms "
+            f"({bound_by})")
+        report["line_opacity"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                  "bound_ms": bound_ms, "bound_by": bound_by,
+                                  "library_ms": None}
         del args, iw, kern, plain
     except Exception as exc:  # noqa: BLE001 - report every phase
         failures.append(f"kernel 1 phase: {exc!r}")
@@ -344,15 +511,19 @@ def main():
                 err = (fk - fp).abs().max().item()
                 ms = cuda_ms(torch, lambda: solver.raytrace(total, source, ray, w), 20)
                 plain_ms = cuda_ms(torch, lambda: solver.raytrace_plain(total, source, ray, w), 5)
+                bound_ms, bound_by = trace_bound(1, *total.shape, len(plan.weights), 4, False)
                 log(f"kernel 2 f32 full slice: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                    f"max abs err {err:.3e}")
-                report["formal_solution"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                    f"max abs err {err:.3e}; bound {bound_ms:.4f} ms ({bound_by})")
+                report["formal_solution"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                             "bound_ms": bound_ms, "bound_by": bound_by,
+                                             "library_ms": None}
     except Exception as exc:  # noqa: BLE001
         failures.append(f"kernel 2 phase: {exc!r}")
 
     # launch counts of each main path: set to 0 just before it, read just after
     counters = {
         "line_opacity": (lk.accumulate_line_opacity_cuda, "launches"),
+        "line_opacity_range": (lk.accumulate_line_opacity_cuda, "range_launches"),
         "formal_solution": (solver.raytrace_cuda, "launches"),
         "formal_solution_inward": (solver.raytrace_cuda, "inward_launches"),
     }
@@ -529,12 +700,14 @@ def main():
                     plain_ms = cuda_ms(
                         torch, lambda: solver.raytrace_plain(a, s, r, w, **kw), 5
                     )
+                    bound_ms, bound_by = trace_bound(1, *a.shape, len(gplan.weights), 4, True)
                     log(f"kernel 2 inward f32 giant: kernel {ms:.3f} ms, "
-                        f"plain {plain_ms:.3f} ms")
+                        f"plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by})")
                 del fk, ik, fp, ip
         del inputs, total, source
         report["formal_solution_inward"] = {
             "max_abs_err": max(f32_errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         }
     except Exception as exc:  # noqa: BLE001
         failures.append(f"inward sweep phase: {exc!r}")
@@ -659,7 +832,7 @@ def main():
 
         batch_run()  # warm-up
         reset_counts()
-        fk = batch_run()
+        f_batch = batch_run()
         launches = path_launches["batch"] = read_counts()
         walls = []
         for _ in range(3):
@@ -681,34 +854,36 @@ def main():
         log(f"batch profiled run: wall {p_wall:.4f} s, device busy {busy * 1e3:.2f} ms "
             f"({busy / p_wall:.1%} of the wall), {ops} device ops")
         fp = batch_run(plain=True)
-        rel, zeros_ok = rel_err(fk, fp)
+        rel, zeros_ok = rel_err(f_batch, fp)
         log(f"batch kernels vs plain versions: F_nu max rel err {rel:.3e} (bound 1e-4)")
-        if not (rel <= 1e-4 and zeros_ok and torch.isfinite(fk).all()):
+        if not (rel <= 1e-4 and zeros_ok and torch.isfinite(f_batch).all()):
             failures.append(f"batch kernel vs plain rel err {rel:.3e}")
         # Kernel 1's own [16, D, N] output on the model axis, in both
         # window modes, against its plain version (phase 3's bound)
         temps = torch.as_tensor(batch.temperatures, device=dev).to(torch.float32)
         n_elem = torch.as_tensor(batch.n_elem, device=dev).to(torch.float32)
-        states, quants = zip(*(stage_plasma_and_lines(bplan, temps[b], n_elem[b])
+        bconsts = device_constants(bplan, torch.float32, dev)
+        states, quants = zip(*(stage_plasma_and_lines(bplan, temps[b], n_elem[b], bconsts)
                                for b in range(BATCH_MODELS)))
         for mode in ("reference", "accuracy"):
             mplan = dataclasses.replace(bplan, window_mode=mode)
-            ok, op = (spectrum_batch(mplan, states, quants, batch.ray_distances,
-                                     plain=plain)[2]["alpha_line_at_nu"]
-                      for plain in (False, True))
+            ok, op = (spectrum_batch(
+                mplan, states, prepare_lines(mplan, states, quants, bconsts, plain=plain),
+                bconsts, batch.ray_distances, plain=plain)[2]["alpha_line_at_nu"]
+                for plain in (False, True))
             row, rows_ok = row_err(ok, op)
             log(f"batch {mode} windows: Kernel 1 alpha_line_at_nu vs plain "
                 f"{list(ok.shape)}, max row err / row max {row:.3e} (bound 1e-4)")
             if not (ok.shape[0] == BATCH_MODELS and row <= 1e-4 and rows_ok):
                 failures.append(f"batch {mode} alpha_line_at_nu row err {row:.3e}")
-        del states, quants, ok, op
+        del states, quants, ok, op, bconsts
         worst = 0.0
         for i, path in enumerate(paths):
             cfg_i = copy.deepcopy(b_cfg)
             cfg_i["input_model"]["fname"] = path
             spec = run_stardis(cfg_i, u.Quantity(b_lams, u.AA), device="cuda",
                                dtype=torch.float32, atom_data=b_adata).spectrum_nu.value
-            member = fk[i, -1].double().cpu().numpy()
+            member = f_batch[i, -1].double().cpu().numpy()
             worst = max(worst, float(np.abs(member / spec - 1.0).max()))
         log(f"batch members vs run_stardis of each model: max rel err {worst:.3e} "
             "(bound 1e-5)")
@@ -743,6 +918,526 @@ def main():
             failures.append(f"giant batch member vs run_stardis rel err {worst:.3e}")
     except Exception as exc:  # noqa: BLE001
         failures.append(f"batch phase: {exc!r}")
+
+    from stardis_tpu_torch.parallel.sharding import segment_ranges, segmented_spectrum
+    from stardis_tpu_torch.util import memory as mem
+
+    def wide_grid(n_points):
+        return u.Quantity(np.linspace(*FLAGSHIP_LAMBDA, n_points), u.AA)
+
+    def model_estimate(mplan, k=1):
+        """util.memory's peak bytes of a run of this plan in k ranges."""
+        n_seg = -(-len(mplan.tracing_nus) // k)
+        return (mem.estimate_segment_bytes(n_seg, len(mplan.temperatures), len(mplan.weights),
+                                           mem.count_alpha_sources(mplan), 4)
+                + mem.fixed_overhead_bytes(mplan, k, 4))
+
+    def check_estimate(label, estimate, peak):
+        ratio = estimate / peak
+        log(f"memory model, {label}: measured peak {peak / 1e9:.4f} GB, estimate "
+            f"{estimate / 1e9:.4f} GB, estimate / peak {ratio:.4f} (bound [1, 1.5])")
+        if not 1.0 <= ratio <= 1.5:
+            failures.append(f"memory model, {label}: estimate / peak {ratio:.4f}")
+
+    # --- 9. the memory model --------------------------------------------------
+    def mem_plan(cfg, adata, lam):
+        config, _, model = parse_config_to_model(cfg, atom_data=adata)
+        return build_simulation_plan(config, adata, model, lam.to(u.Hz, u.spectral()).value)
+
+    def host(v):
+        return v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+
+    def max_rel(ours, ref):
+        """max |ours - ref| / |ref| over ref != 0 (host arrays); inf where
+        ours is not 0 where ref is."""
+        nz = ref != 0
+        if (ours[~nz] != 0).any():
+            return float("inf")
+        return float((np.abs(ours - ref)[nz] / np.abs(ref[nz])).max())
+
+    try:
+        mem_adata = synth_linelist(build_builtin_atom_data(30, include_linelists=True),
+                                   MEMORY_LINES, *FLAGSHIP_LINE_RANGE)
+        peaks, spectra = {}, {}
+        for n_points in MEMORY_POINTS:
+            m_lam = wide_grid(n_points)
+            for track in (False, True):
+                cfg = sim100aa_config(model_path)
+                cfg["result_options"] = {"return_radiation_field": track}
+                mplan = mem_plan(cfg, mem_adata, m_lam)
+                estimate, n_lines = model_estimate(mplan), mplan.line_data.n_lines
+                del mplan
+                peak, out = peak_bytes(torch, lambda: run_stardis(
+                    cfg, m_lam, device="cuda", dtype=torch.float32, atom_data=mem_adata))
+                peaks[n_points, track] = peak
+                spectra[n_points, track] = out.spectrum_nu.value
+                del out
+                check_estimate(f"{n_points} points x {n_lines} lines, "
+                               f"return_radiation_field={track}", estimate, peak)
+        again = run_stardis(cfg, m_lam, device="cuda", dtype=torch.float32,
+                            atom_data=mem_adata).spectrum_nu.value
+        log(f"run_stardis at {MEMORY_POINTS[-1]} points twice: F_nu equal bit for bit "
+            f"{bool(np.array_equal(again, spectra[MEMORY_POINTS[-1], True]))}")
+
+        # the spherical giant: three file tables (uploaded per source),
+        # molecules and a molecular line set, the inward sweep
+        g_mem_adata = build_builtin_atom_data(30, include_linelists=True, include_molecules=True)
+        synth_linelist(g_mem_adata, MEMORY_LINES, *FLAGSHIP_LINE_RANGE)
+        synth_molecule_linelist(g_mem_adata, MEMORY_MOL_LINES, *FLAGSHIP_LINE_RANGE)
+        for n_points, track in MEMORY_GIANT_RUNS:
+            m_lam = wide_grid(n_points)
+            cfg = giant_config(giant_path, tables)
+            cfg["result_options"] = {"return_radiation_field": track}
+            mplan = mem_plan(cfg, g_mem_adata, m_lam)
+            estimate = model_estimate(mplan)
+            label = (f"giant, {n_points} points x {mplan.line_data.n_lines} + "
+                     f"{mplan.molecule_line_data.n_lines} lines, "
+                     f"{len(mplan.file_sources)} file tables, return_radiation_field={track}")
+            del mplan
+            peak, out = peak_bytes(torch, lambda: run_stardis(
+                cfg, m_lam, device="cuda", dtype=torch.float32, atom_data=g_mem_adata))
+            spec = out.spectrum_nu.value
+            del out
+            if not (np.isfinite(spec).all() and (spec > 0).all()):
+                failures.append(f"memory model, {label}: F_nu not finite and positive")
+            check_estimate(label, estimate, peak)
+
+        budget = int(MEMORY_BUDGET_SHARE * peaks[MEMORY_POINTS[-1], False])
+        m_lam = wide_grid(MEMORY_POINTS[-1])
+        cfg = sim100aa_config(model_path)
+        mplan = mem_plan(cfg, mem_adata, m_lam)
+        os.environ["STARDIS_SEGMENT_BUDGET"] = str(budget)
+        try:
+            k = mem.choose_nu_segments(mplan, itemsize=4)
+            reset_counts()
+            peak, out = peak_bytes(torch, lambda: run_stardis(
+                cfg, m_lam, device="cuda", dtype=torch.float32, atom_data=mem_adata,
+                nu_segments="auto"))
+            launches = path_launches["budgeted auto segments"] = read_counts()
+        finally:
+            del os.environ["STARDIS_SEGMENT_BUDGET"]
+        ref = spectra[MEMORY_POINTS[-1], False]
+        rel = float(np.abs(out.spectrum_nu.value / ref - 1.0).max())
+        log(f"memory budget {budget / 1e9:.4f} GB ({MEMORY_BUDGET_SHARE:.0%} of the unsegmented "
+            f"peak): nu_segments='auto' chose K = {k}; measured peak {peak / 1e9:.4f} GB; "
+            f"launches {launches}; F_nu against the unsegmented run max rel err {rel:.3e} "
+            "(bound 1e-6)")
+        if not (k > 1 and peak < budget and launches["line_opacity_range"] == k
+                and rel <= 1e-6):
+            failures.append(f"budgeted auto segments: K {k}, peak {peak}, budget {budget}, "
+                            f"rel err {rel:.3e}")
+        check_estimate(f"budgeted, K = {k}", model_estimate(mplan, k), peak)
+        del out, spectra, mplan
+
+        # K > 1 with return_radiation_field: I_nu preallocated on the card,
+        # the opacities streamed to the host range by range; the budget is
+        # the unsegmented tracked run's measured peak
+        n_t = MEMORY_TRACKED_POINTS
+        m_lam = wide_grid(n_t)
+        cfg = sim100aa_config(model_path)
+        cfg["result_options"] = {"return_radiation_field": True}
+        whole = run_stardis(cfg, m_lam, device="cuda", dtype=torch.float32,
+                            atom_data=mem_adata).stellar_radiation_field
+        ref = {"F_nu": host(whole.F_nu), "I_nu": host(whole.I_nus),
+               "total": host(whole.opacities.total_alphas),
+               **{key: host(v) for key, v in whole.opacities.opacities_dict.items()}}
+        del whole
+        budget = peaks[n_t, True]
+        mplan = mem_plan(cfg, mem_adata, m_lam)
+        k = mem.choose_nu_segments(mplan, budget, itemsize=4)
+        os.environ["STARDIS_SEGMENT_BUDGET"] = str(budget)
+        try:
+            reset_counts()
+            peak, out = peak_bytes(torch, lambda: run_stardis(
+                cfg, m_lam, device="cuda", dtype=torch.float32, atom_data=mem_adata,
+                nu_segments="auto"))
+            launches = path_launches["budgeted auto segments, I_nu"] = read_counts()
+        finally:
+            del os.environ["STARDIS_SEGMENT_BUDGET"]
+        parts = out.stellar_radiation_field
+        ours = {"F_nu": host(parts.F_nu), "I_nu": host(parts.I_nus),
+                "total": host(parts.opacities.total_alphas),
+                **{key: host(v) for key, v in parts.opacities.opacities_dict.items()}}
+        del out, parts
+        errs = {key: max_rel(ours[key], v) for key, v in ref.items() if key in ours}
+        worst = max(errs.values())
+        log(f"memory budget {budget / 1e9:.4f} GB (the unsegmented peak), {n_t} points, "
+            f"return_radiation_field=True: nu_segments='auto' chose K = {k}; measured peak "
+            f"{peak / 1e9:.4f} GB; launches {launches}; {len(errs)} arrays (F_nu, I_nu, total, "
+            f"each opacity) against the unsegmented run: max rel err {worst:.3e}, equal bit "
+            f"for bit {all(np.array_equal(ours[key], ref[key]) for key in errs)} (bound 1e-6)")
+        if not (k > 1 and peak < budget and launches["line_opacity_range"] == k
+                and set(ours) == set(ref) and worst <= 1e-6):
+            failures.append(f"budgeted tracked segments: K {k}, peak {peak}, budget {budget}, "
+                            f"keys {sorted(ours)}, rel err {worst:.3e}")
+        check_estimate(f"budgeted, return_radiation_field=True, K = {k}",
+                       model_estimate(mplan, k), peak)
+        del ref, ours, mplan
+    except Exception as exc:  # noqa: BLE001
+        failures.append(f"memory model phase: {exc!r}")
+
+    # --- 10. Kernel 1's range launch, then the flagship -------------------------
+    try:
+        ranges = segment_ranges(len(plan.tracing_nus), RANGE_SEGMENTS)
+        for dtype in (torch.float64, torch.float32):
+            args, iw = line_inputs(dtype)
+            prepared = lk.prepare_line_opacity(*args, iw)
+            full = lk.line_opacity_range(prepared)
+
+            def range_launches():
+                return [lk.line_opacity_range(prepared, a, b - a) for a, b in ranges]
+
+            def plain_ranges():
+                return [lk.accumulate_line_opacity_plain(*args, iw, p_begin=a, n_out=b - a)
+                        for a, b in ranges]
+
+            parts = torch.cat(range_launches(), dim=1)
+            torch.cuda.synchronize()
+            same = torch.equal(parts, full)
+            name = "f64" if dtype == torch.float64 else "f32"
+            log(f"kernel 1 range launch {name}: {len(ranges)} ranges "
+                f"{[b - a for a, b in ranges]} of {len(plan.tracing_nus)} pixels x "
+                f"{plan.line_data.n_lines} lines == the full launch bit for bit: {same}")
+            if not same:
+                failures.append(f"kernel 1 range launch {name} differs from the full launch")
+            if dtype == torch.float64:
+                plain = torch.cat(plain_ranges(), dim=1)
+                rel = ((parts - plain).abs() / plain.abs().clamp_min(1e-300)).max().item()
+                log(f"kernel 1 range launch f64 vs plain ranges: max rel err {rel:.3e} "
+                    "(bound 1e-12)")
+                if not rel <= 1e-12:
+                    failures.append(f"kernel 1 range launch f64 rel err {rel:.3e}")
+            else:
+                ms = cuda_ms(torch, range_launches, 5)
+                t_plain = time.perf_counter()
+                plain = torch.cat(plain_ranges(), dim=1)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t_plain) * 1e3
+                err = (parts - plain).abs().max().item()
+                row, rows_ok = row_err(parts, plain)
+                log(f"kernel 1 range launch f32: {len(ranges)} ranges {ms:.3f} ms together, "
+                    f"plain {plain_ms:.1f} ms; max abs err {err:.3e}, max row err / row max "
+                    f"{row:.3e} (bound 1e-4); bound as the full launch "
+                    f"{report['line_opacity']['bound_ms']:.3f} ms")
+                if not (row <= 1e-4 and rows_ok):
+                    failures.append(f"kernel 1 range launch f32 row err {row:.3e}")
+                report["line_opacity_range"] = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": report["line_opacity"]["bound_ms"],
+                    "bound_by": report["line_opacity"]["bound_by"], "library_ms": None,
+                }
+            del args, iw, prepared, full, parts, plain
+    except Exception as exc:  # noqa: BLE001
+        failures.append(f"range launch phase: {exc!r}")
+
+    try:
+        f_lam = wide_grid(FLAGSHIP_POINTS)
+        f_adata = synth_linelist(build_builtin_atom_data(30, include_linelists=True), N_LINES,
+                                 *FLAGSHIP_LINE_RANGE)
+        f_cfg = sim100aa_config(model_path)
+        config, _, model = parse_config_to_model(f_cfg, atom_data=f_adata)
+        fplan = build_simulation_plan(config, f_adata, model, f_lam.to(u.Hz, u.spectral()).value)
+        k_auto = mem.choose_nu_segments(fplan, itemsize=4)
+        log(f"flagship plan: {FLAGSHIP_POINTS} points x {fplan.line_data.n_lines} of {N_LINES} "
+            f"lines; memory model: fixed {mem.fixed_overhead_bytes(fplan, 1, 4) / 1e9:.3f} GB + "
+            f"{mem.per_pixel_bytes(len(fplan.temperatures), len(fplan.weights), mem.count_alpha_sources(fplan), 4)} "
+            f"B/pixel; free for this process {mem.device_bytes_limit() / 1e9:.2f} GB; "
+            f"'auto' chooses K = {k_auto}")
+
+        def flagship_run(k):
+            out = run_stardis(f_cfg, f_lam, device="cuda", dtype=torch.float32,
+                              atom_data=f_adata, nu_segments=k)
+            torch.cuda.synchronize()
+            return out
+
+        reset_counts()
+        t0 = time.perf_counter()
+        flagship_run("auto")
+        cold = time.perf_counter() - t0
+        path_launches["flagship auto"] = read_counts()
+        t0 = time.perf_counter()
+        peak_auto, out_auto = peak_bytes(torch, lambda: flagship_run("auto"))
+        warm = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        peak_k, out_k = peak_bytes(torch, lambda: flagship_run(FLAGSHIP_SEGMENTS))
+        wall_k = time.perf_counter() - t0
+        launches = path_launches[f"flagship K={FLAGSHIP_SEGMENTS}"] = read_counts()
+        spec_auto, spec_k = out_auto.spectrum_nu.value, out_k.spectrum_nu.value
+        rel = float(np.abs(spec_k / spec_auto - 1.0).max())
+        log(f"flagship run_stardis(nu_segments='auto'): K = {k_auto}, launches "
+            f"{path_launches['flagship auto']}, cold wall {cold:.3f} s, warm wall {warm:.3f} s, "
+            f"peak {peak_auto / 1e9:.4f} GB")
+        log(f"flagship run_stardis(nu_segments={FLAGSHIP_SEGMENTS}): wall {wall_k:.3f} s, peak "
+            f"{peak_k / 1e9:.4f} GB, launches {launches}; F_nu against K = {k_auto} max rel "
+            f"err {rel:.3e} (bound 1e-6); F_nu[surface] min {spec_auto.min():.4e}, max "
+            f"{spec_auto.max():.4e}")
+        if not (np.isfinite(spec_auto).all() and (spec_auto > 0).all()
+                and np.isfinite(spec_k).all() and (spec_k > 0).all() and rel <= 1e-6
+                and spec_auto.shape == (FLAGSHIP_POINTS,)):
+            failures.append(f"flagship F_nu not finite, positive and equal: rel {rel:.3e}")
+        auto_launches = path_launches["flagship auto"]
+        expected = ({"line_opacity": 1, "line_opacity_range": 0} if k_auto == 1
+                    else {"line_opacity": 0, "line_opacity_range": k_auto})
+        if not (all(auto_launches[k] == v for k, v in expected.items())
+                and auto_launches["formal_solution"] == k_auto):
+            failures.append(f"flagship auto: launches {auto_launches} for K = {k_auto}")
+        if not (launches["line_opacity_range"] == FLAGSHIP_SEGMENTS
+                and launches["formal_solution"] == FLAGSHIP_SEGMENTS):
+            failures.append(f"flagship K={FLAGSHIP_SEGMENTS}: launches {launches}")
+        check_estimate(f"flagship, K = {k_auto}", model_estimate(fplan, k_auto), peak_auto)
+        check_estimate(f"flagship, K = {FLAGSHIP_SEGMENTS}",
+                       model_estimate(fplan, FLAGSHIP_SEGMENTS), peak_k)
+        del out_auto, out_k
+        timings = {}
+        run_simulation(fplan, device=dev, dtype=torch.float32, timings=timings,
+                       nu_segments=k_auto)
+        log(f"flagship device stages, K = {k_auto} (s, synchronised): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in timings.items()))
+        temps = torch.as_tensor(fplan.temperatures, device=dev).to(torch.float32)
+        n_elem = torch.as_tensor(fplan.n_elem, device=dev).to(torch.float32)
+        fconsts = device_constants(fplan, torch.float32, dev)
+        state, quants = stage_plasma_and_lines(fplan, temps, n_elem, fconsts)
+        walls = []
+        segmented_spectrum(fplan, state, quants, FLAGSHIP_SEGMENTS, fconsts,
+                           segment_walls=walls)
+        log(f"flagship segment_walls, K = {FLAGSHIP_SEGMENTS} (s, CUDA events): "
+            + ", ".join(f"{w:.4f}" for w in walls))
+        # the continuum of each range against the whole grid's columns
+        f_ranges = segment_ranges(FLAGSHIP_POINTS, FLAGSHIP_SEGMENTS)
+        nus_t = torch.as_tensor(fplan.tracing_nus, device=dev).to(torch.float32)
+        whole = continuum_batch(fplan, [state], nus_t)
+        parts = [continuum_batch(fplan, [state], nus_t[a:b], pixels=slice(a, b))
+                 for a, b in f_ranges]
+        log("flagship continuum in the ranges == the whole grid's columns bit for bit: "
+            + str({k: torch.equal(torch.cat([q[k] for q in parts], dim=-1), v)
+                   for k, v in whole.items()}))
+        del whole, parts
+        alpha, gamma, doppler = quants["atomic"]
+        f_iw = lk.window_half_widths(alpha, gamma, doppler, fplan.d_nu, FLAGSHIP_POINTS)
+        evals = voigt_evaluations(
+            fplan.tracing_nus, fplan.line_data.nu,
+            lk.line_center_indices(fplan.tracing_nus, fplan.line_data.nu),
+            gamma.double().cpu().numpy(), doppler.double().cpu().numpy(), f_iw.cpu().numpy())
+        f_bound, f_by = line_bound(evals, 1, fplan.line_data.n_lines, len(fplan.temperatures),
+                                   FLAGSHIP_POINTS, 4)
+        log(f"flagship Kernel 1 in-window evaluations by Voigt region: {evals}; bound "
+            f"{f_bound:.3f} ms ({f_by}); line_opacity stage {timings['line_opacity'] * 1e3:.1f} ms")
+
+        # Kernel 1 at the flagship's shape against its plain version, on
+        # the main path's prepared inputs: ranges of FLAGSHIP_CHECK_PIXELS
+        # at both ends of the grid (where the deep layers' grid-wide
+        # windows are clamped), across each boundary of the K = 4 ranges,
+        # and across the upper window edge of the deepest layer's widest
+        # line whose edge lies inside the grid; float32 at phase 3's row
+        # bound for a whole line set, float64 at 1e-12
+        n_chk = FLAGSHIP_CHECK_PIXELS
+        centres = lk.line_center_indices(fplan.tracing_nus, fplan.line_data.nu)
+        deep_iw = f_iw[:, -1].cpu().numpy().astype(np.int64)
+        edge = centres + deep_iw
+        inner = np.flatnonzero((edge >= n_chk) & (edge <= FLAGSHIP_POINTS - n_chk))
+        starts = [0, FLAGSHIP_POINTS - n_chk] + [a - n_chk // 2 for a, _ in f_ranges[1:]]
+        if len(inner):
+            starts.append(int(edge[inner[np.argmax(deep_iw[inner])]]) - n_chk // 2)
+        log(f"flagship Kernel 1 check ranges: {n_chk} pixels from {starts}; deepest layer's "
+            f"widest half-window {int(deep_iw.max())} pixels")
+        del f_iw, alpha, gamma, doppler
+        for dtype in (torch.float32, torch.float64):
+            if dtype == torch.float32:
+                c_d, st, qd = fconsts, state, quants
+            else:
+                c_d = device_constants(fplan, dtype, dev)
+                st, qd = stage_plasma_and_lines(
+                    fplan, torch.as_tensor(fplan.temperatures, device=dev),
+                    torch.as_tensor(fplan.n_elem, device=dev), c_d)
+            (_, kin, _, _), = prepare_lines(fplan, [st], [qd], c_d)
+            (_, pin, _, _), = prepare_lines(fplan, [st], [qd], c_d, plain=True)
+            worst, t_plain = 0.0, 0.0
+            for a in starts:
+                kern = lk.line_opacity_range(kin, a, n_chk)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                plain = lk.accumulate_line_opacity_plain(
+                    pin.grid, pin.line_nu, pin.centers, pin.alpha, pin.gamma, pin.doppler,
+                    pin.iw, budget=FLAGSHIP_PLAIN_BUDGET, p_begin=a, n_out=n_chk)
+                torch.cuda.synchronize()
+                t_plain += time.perf_counter() - t0
+                if dtype == torch.float64:
+                    err = ((kern - plain).abs() / plain.abs().clamp_min(1e-300)).max().item()
+                    ok = err <= 1e-12
+                else:
+                    err, rows_ok = row_err(kern, plain)
+                    ok = err <= 1e-4 and rows_ok
+                worst = max(worst, err)
+                if not (ok and kern.shape == (1, len(fplan.temperatures), n_chk)):
+                    failures.append(f"flagship Kernel 1 {dtype} range at {a}: err {err:.3e}")
+            log(f"flagship Kernel 1 {str(dtype)[6:]} vs plain on {len(starts)} ranges: max "
+                + ("rel err" if dtype == torch.float64 else "row err / row max")
+                + f" {worst:.3e} (bound {1e-12 if dtype == torch.float64 else 1e-4:g}); "
+                f"plain {t_plain:.1f} s")
+            del kin, pin, kern, plain
+        del c_d, st, qd
+
+        # Kernel 2 at the flagship's full shape against its plain version;
+        # the plain version runs on column blocks (each column is its own
+        # computation) to bound its [T, G, n] temporaries
+        _, total, _, _ = stage_spectrum(fplan, state, quants, fconsts)
+        source = blackbody_flux_at_nu(fconsts.tracing_nus, state.t)
+        ray = torch.as_tensor(fplan.ray_distances, device=dev).to(torch.float32)
+        w = torch.as_tensor(fplan.weights, device=dev).to(torch.float32)
+        f_k, i_k = solver.raytrace(total, source, ray, w, track_individual_intensities=True)
+        worst_f = worst_i = 0.0
+        zeros_ok = True
+        for a in range(0, FLAGSHIP_POINTS, FLAGSHIP_TRACE_BLOCK):
+            b = min(a + FLAGSHIP_TRACE_BLOCK, FLAGSHIP_POINTS)
+            fp, ip = solver.raytrace_plain(total[:, a:b], source[:, a:b], ray, w,
+                                           track_individual_intensities=True)
+            rel_f, zf = rel_err(f_k[:, a:b], fp)
+            rel_i, zi = rel_err(i_k[:, a:b], ip)
+            worst_f, worst_i = max(worst_f, rel_f), max(worst_i, rel_i)
+            zeros_ok = zeros_ok and zf and zi
+            del fp, ip
+        log(f"flagship Kernel 2 f32 vs plain (56 x {FLAGSHIP_POINTS} x {len(fplan.weights)}): "
+            f"max rel err F_nu {worst_f:.3e}, I_nu {worst_i:.3e} (bound 1e-5)")
+        if not (worst_f <= 1e-5 and worst_i <= 1e-5 and zeros_ok):
+            failures.append(f"flagship Kernel 2 rel err {worst_f:.3e} / {worst_i:.3e}")
+        del state, quants, fplan, fconsts, total, source, f_k, i_k
+    except Exception as exc:  # noqa: BLE001
+        failures.append(f"flagship phase: {exc!r}")
+
+    # --- 11. serving ----------------------------------------------------------
+    try:
+        from stardis_tpu_torch.base import read_stellar_model
+        from stardis_tpu_torch.serving import SpectralService
+
+        serve_paths = []
+        for teff in SERVE_TEFFS:
+            serve_paths.append(os.path.join(tmp.name, f"serve{int(teff)}.mod"))
+            write_marcs_file(serve_paths[-1], teff=teff)
+        s_adata = synth_linelist(build_builtin_atom_data(30, include_linelists=True), N_LINES)
+        s_cfg = sim100aa_config(serve_paths[0])
+        svc = SpectralService(s_cfg, lam_q, atom_data=s_adata)
+        s_models = [read_stellar_model(svc.config, svc.atom_data, p) for p in serve_paths]
+        reset_counts()
+        served = [svc.synthesize(m) for m in s_models]
+        launches = path_launches["serving"] = read_counts()
+        if not (launches["line_opacity"] == len(s_models)
+                and launches["formal_solution"] == len(s_models)):
+            failures.append(f"serving: launches {launches}")
+        svc_walls = []
+        for m in s_models:
+            t0 = time.perf_counter()
+            svc.synthesize(m)
+            svc_walls.append(time.perf_counter() - t0)
+        worst, run_walls = 0.0, []
+        for path, out in zip(serve_paths, served):
+            cfg_i = copy.deepcopy(s_cfg)
+            cfg_i["input_model"]["fname"] = path
+            run_stardis(cfg_i, lam_q, atom_data=s_adata)
+            t0 = time.perf_counter()
+            ref = run_stardis(cfg_i, lam_q, atom_data=s_adata).spectrum_nu.value
+            run_walls.append(time.perf_counter() - t0)
+            worst = max(worst, float(np.abs(out["spectrum_nu"] / ref - 1.0).max()))
+        log(f"serving Sim100AA ({N_LINES} lines), Teff {SERVE_TEFFS}: requests against "
+            f"run_stardis max rel err {worst:.3e} (bound 1e-5); warm request walls "
+            + ", ".join(f"{w:.4f}" for w in svc_walls) + " s; warm run_stardis walls "
+            + ", ".join(f"{w:.4f}" for w in run_walls) + f" s; stats {svc.stats}")
+        if not worst <= 1e-5:
+            failures.append(f"serving against run_stardis rel err {worst:.3e}")
+        svc3 = SpectralService(s_cfg, lam_q, atom_data=s_adata, nu_segments=RANGE_SEGMENTS)
+        reset_counts()
+        served3 = [svc3.synthesize(m) for m in s_models]
+        launches = path_launches[f"serving, {RANGE_SEGMENTS} segments"] = read_counts()
+        rel3 = max(rel_err(torch.as_tensor(a["F_nu"]), torch.as_tensor(b["F_nu"]))[0]
+                   for a, b in zip(served3, served))
+        log(f"serving through nu_segments={RANGE_SEGMENTS}: F_nu against the unsegmented "
+            f"service max rel err {rel3:.3e} (bound 1e-6); launches {launches}")
+        n_ranges = RANGE_SEGMENTS * len(s_models)
+        if not (rel3 <= 1e-6 and launches["line_opacity_range"] == n_ranges
+                and launches["formal_solution"] == n_ranges):
+            failures.append(f"segmented serving rel err {rel3:.3e}, launches {launches}")
+
+        g2_path = os.path.join(tmp.name, "giant_serve.mod")
+        write_marcs_file(g2_path, **{**GIANT, "teff": SERVE_GIANT_TEFF})
+        g_adata = synth_linelist(build_builtin_atom_data(30, include_linelists=True), N_LINES)
+        g_cfg = giant_config(giant_path, tables, molecules=False)
+        gsvc = SpectralService(g_cfg, lam_q, atom_data=g_adata)
+        gsvc.synthesize(read_stellar_model(gsvc.config, gsvc.atom_data, giant_path))
+        g_out = gsvc.synthesize(read_stellar_model(gsvc.config, gsvc.atom_data, g2_path))
+        cfg_g2 = copy.deepcopy(g_cfg)
+        cfg_g2["input_model"]["fname"] = g2_path
+        ref = run_stardis(cfg_g2, lam_q, atom_data=g_adata).spectrum_nu.value
+        rel_g = float(np.abs(g_out["spectrum_nu"] / ref - 1.0).max())
+        log(f"giant service (3 file tables, spherical), {SERVE_GIANT_TEFF:.0f} K request: "
+            f"sigma re-interpolations {gsvc.stats.sigma_reinterp_events}; against run_stardis "
+            f"max rel err {rel_g:.3e} (bound 1e-5)")
+        if not (gsvc.stats.sigma_reinterp_events == 1 and rel_g <= 1e-5):
+            failures.append(f"giant service: {gsvc.stats}, rel err {rel_g:.3e}")
+
+        bsvc = SpectralService(b_cfg, u.Quantity(b_lams, u.AA), atom_data=b_adata)
+        fb = bsvc.synthesize_batch(models)
+        rel_b, _ = rel_err(torch.as_tensor(fb), f_batch.cpu())
+        log(f"synthesize_batch of {len(models)} models against run_batch: F_nu max rel err "
+            f"{rel_b:.3e} (bound 1e-6)")
+        if not rel_b <= 1e-6:
+            failures.append(f"synthesize_batch rel err {rel_b:.3e}")
+        p_wall, busy, ops = device_busy(torch, lambda: svc.synthesize(s_models[0]))
+        log(f"serving profiled request: wall {p_wall:.4f} s, device busy {busy * 1e3:.2f} ms "
+            f"({busy / p_wall:.1%} of the wall), {ops} device ops")
+        del svc, svc3, gsvc, bsvc
+    except Exception as exc:  # noqa: BLE001
+        failures.append(f"serving phase: {exc!r}")
+
+    # --- 12. grid scan and the command line -------------------------------------
+    try:
+        from stardis_tpu_torch.grid import load_grid, synthesize_grid
+
+        scan, fresh = os.path.join(tmp.name, "scan"), os.path.join(tmp.name, "scan_fresh")
+        labels = [{"teff": float(t)} for t in np.linspace(5000.0, 6500.0, BATCH_MODELS)]
+        kw = {"batch_size": 8, "labels": labels}
+        config_b = parse_config_to_model(b_cfg, atom_data=b_adata)[0]
+        r1 = synthesize_grid(config_b, b_adata, models, b_nus, scan, max_chunks=1, **kw)
+        r2 = synthesize_grid(config_b, b_adata, models, b_nus, scan, **kw)
+        reset_counts()
+        r3 = synthesize_grid(config_b, b_adata, models, b_nus, fresh, **kw)
+        launches = path_launches["grid scan"] = read_counts()
+        if not (launches["line_opacity"] == 2 and launches["formal_solution"] == 2):
+            failures.append(f"grid scan: launches {launches} for 2 chunks")
+        resumed, fresh_spec = load_grid(scan)[0], load_grid(fresh)[0]
+        same = bool(np.array_equal(resumed, fresh_spec))
+        rel_g, _ = rel_err(torch.as_tensor(resumed), f_batch[:, -1].cpu())
+        log(f"grid scan of {BATCH_MODELS} models in chunks of 8: stopped {r1}, resumed {r2}; "
+            f"resumed == uninterrupted bit for bit: {same}; against run_batch of all "
+            f"{BATCH_MODELS} max rel err {rel_g:.3e}")
+        if not (same and r1["computed"] == 1 and not r1["done"] and r2["skipped"] == 1
+                and r2["computed"] == 1 and r2["done"] and r3["computed"] == 2
+                and np.isfinite(resumed).all()):
+            failures.append(f"grid scan: {r1} {r2} {r3} equal {same}")
+
+        cli_cfg = os.path.join(tmp.name, "sim100aa.json")
+        with open(cli_cfg, "w") as fh:
+            json.dump(sim100aa_config(model_path), fh)
+        table = os.path.join(tmp.name, "spectrum.txt")
+        lam_spec = ":".join(f"{v:g}" for v in SIM100AA_LAMBDA)
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "stardis_tpu_torch", cli_cfg, "--lambda", lam_spec,
+             "--segments", "auto", "--ascii", table],
+            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+            timeout=600,
+        )
+        cli_wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise RuntimeError(f"CLI exit {res.returncode}: {res.stderr[-2000:]}")
+        f_lam_cli = np.loadtxt(table)[:, 1]
+        ref = run_stardis(sim100aa_config(model_path), lam_q).spectrum_lambda.value
+        rel_c = float(np.abs(f_lam_cli / ref - 1.0).max())
+        log(f"CLI: {res.stdout.strip()} (process wall {cli_wall:.2f} s); F_lambda against "
+            f"run_stardis max rel err {rel_c:.3e} (bound 1e-6)")
+        if not (rel_c <= 1e-6 and f_lam_cli.shape == ref.shape):
+            failures.append(f"CLI against run_stardis rel err {rel_c:.3e}")
+    except Exception as exc:  # noqa: BLE001
+        failures.append(f"grid and CLI phase: {exc!r}")
     tmp.cleanup()
 
     if failures:
@@ -758,6 +1453,8 @@ def main():
     sources = {
         "line_opacity": ("stardis_tpu_torch/csrc/line_opacity.cu",
                          "stardis_tpu/opacities/line_kernel.py:1049"),
+        "line_opacity_range": ("stardis_tpu_torch/csrc/line_opacity.cu",
+                               "stardis_tpu/opacities/line_kernel.py:1316"),
         "formal_solution": ("stardis_tpu_torch/csrc/formal_solution.cu",
                             "stardis_tpu/radiation_field/solver.py:186"),
         "formal_solution_inward": ("stardis_tpu_torch/csrc/formal_solution.cu",

@@ -17,6 +17,7 @@ from .io.marcs import read_marcs_model
 from .pipeline import (
     build_simulation_plan,
     not_ported,
+    resolve_device,
     run_simulation,
 )
 from .plasma.molecules import molecule_number_density_table
@@ -162,8 +163,36 @@ class STARDISOutput:
         )
 
 
+def check_segments(nu_segments, mesh=None):
+    """The JAX package's checks on ``nu_segments`` (an integer or "auto")
+    and ``mesh``, made before any work; ``mesh`` itself is not ported."""
+    if isinstance(nu_segments, str) and nu_segments != "auto":
+        raise ValueError(f"nu_segments must be an integer or 'auto', got {nu_segments!r}")
+    if mesh is not None and nu_segments not in (1, "auto"):
+        raise ValueError(
+            "nu_segments and mesh are mutually exclusive: a wavelength "
+            "mesh already splits the per-device footprint"
+        )
+    if mesh is not None:
+        raise not_ported("mesh=", "multi-GPU sharding")
+
+
+def resolve_segments(nu_segments, plan, dtype, device):
+    """An integer segment count; "auto" asks the memory model
+    (``util.memory.choose_nu_segments``) for this plan on this device."""
+    if nu_segments != "auto":
+        return int(nu_segments)
+    from .util.memory import choose_nu_segments
+
+    k = choose_nu_segments(plan, itemsize=torch.empty(0, dtype=dtype).element_size(),
+                           device=device)
+    if k > 1:
+        logger.info("Auto-segmentation: %d serial wavelength segments", k)
+    return k
+
+
 def run_stardis(config, tracing_lambdas_or_nus, add_config_dict=None,
-                device="cpu", dtype=torch.float64, atom_data=None,
+                device="cuda", dtype=torch.float32, atom_data=None,
                 nu_segments=1, mesh=None):
     """Run a STARDIS simulation on one device.
 
@@ -173,19 +202,22 @@ def run_stardis(config, tracing_lambdas_or_nus, add_config_dict=None,
         installed).
     tracing_lambdas_or_nus : Quantity with length or frequency units.
     add_config_dict : optional dotted-key overrides.
-    device : torch device; "cuda" runs the hand-written kernels and raises
-        when no GPU is available.
-    dtype : torch.float32 (the GPU precision) or torch.float64.
+    device : torch device, the card by default ("cuda" raises when no GPU
+        is available); "cpu" runs the kernels' plain torch versions.
+    dtype : torch.float32 (the GPU precision, default) or torch.float64.
     atom_data : optional AtomData replacing the one the config names.
-    nu_segments, mesh : not ported (ROADMAP Queue 1).
+    nu_segments : synthesize the grid in this many serial wavelength
+        segments (``parallel.sharding.segmented_spectrum``), for grids
+        beyond the card's memory; "auto" asks the memory model
+        (``util.memory.choose_nu_segments``; ``STARDIS_SEGMENT_BUDGET``
+        sets a budget in bytes).  Segmented == unsegmented.  With
+        ``result_options.return_radiation_field`` the per-source opacity
+        grids and their total are assembled on the host per segment, as
+        NumPy arrays; without it they are left empty.
+    mesh : not ported (ROADMAP Queue 1: multi-GPU sharding).
     """
-    if mesh is not None:
-        raise not_ported("mesh=", "multi-GPU sharding")
-    if nu_segments != 1:
-        raise not_ported("nu_segments", "segments and the H100 memory model")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("run_stardis(device='cuda'): no CUDA device is available")
+    check_segments(nu_segments, mesh)
+    device = resolve_device(device, "run_stardis")
     if not hasattr(tracing_lambdas_or_nus, "to"):
         raise TypeError(
             "tracing_lambdas_or_nus must carry units, e.g. "
@@ -201,7 +233,8 @@ def run_stardis(config, tracing_lambdas_or_nus, add_config_dict=None,
     )
     plan = build_simulation_plan(config, adata, stellar_model, tracing_nus_hz)
     f_nu, total, opacities_dict, i_nus, state = run_simulation(
-        plan, device=device, dtype=dtype
+        plan, device=device, dtype=dtype,
+        nu_segments=resolve_segments(nu_segments, plan, dtype, device),
     )
 
     thetas, weights = gauss_legendre_thetas(int(config.no_of_thetas))

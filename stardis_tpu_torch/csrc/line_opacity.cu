@@ -15,8 +15,21 @@
 //                                           (and its scatter chunk_body)
 //   stardis_tpu/parallel/batch.py:225       run_batch's vmap of that sum
 //                                           over a leading model axis
+//   stardis_tpu/opacities/line_kernel.py:1316
+//                                           accumulate_pairs_blocked: the
+//                                           sum over one pixel range with
+//                                           a line halo, the program of each
+//                                           segment (parallel/sharding.py:555)
 // The window tiers, panels and split passes there exist to avoid v5e
 // scatter costs; this kernel gathers instead and needs none of them.
+//
+// Every launch covers a pixel range [p_begin, p_begin + n_out) of the
+// global grid and writes out[b, d, p - p_begin]; a full launch is the range
+// [0, n_nu).  The grid, the centres and the half-windows stay global (the
+// windows clamped at the global n_nu on the host), so a pixel adds the same
+// lines in the same order whatever range it is launched in: a segmented
+// run equals the unsegmented one bit for bit.  The binary search below is
+// the line halo that bucket_pair_programs_per_shard selects on the host.
 //
 // Design: one thread owns one (model, depth, pixel) output; a block is one
 // model x one depth x a tile of TILE pixels (grid z = model).  The window
@@ -148,15 +161,17 @@ line_opacity_kernel(const T* __restrict__ grid, const T* __restrict__ line_nu,
                     const int* __restrict__ center, const T* __restrict__ alpha,
                     const T* __restrict__ gamma, const T* __restrict__ doppler,
                     const int* __restrict__ iw, const int* __restrict__ iw_max,
-                    T* __restrict__ out, int n_lines, int n_depth, int n_nu) {
+                    T* __restrict__ out, int n_lines, int n_depth, int p_begin,
+                    int n_out) {
   __shared__ T s_nu[TILE], s_alpha[TILE], s_gamma[TILE], s_dop[TILE];
   __shared__ int s_center[TILE], s_iw[TILE];
 
   const int d = blockIdx.y;
   const int b = blockIdx.z;
-  const int p0 = blockIdx.x * TILE;
+  const int p_end = p_begin + n_out;  // global pixels of this launch: [p_begin, p_end)
+  const int p0 = p_begin + blockIdx.x * TILE;
   const int p = p0 + threadIdx.x;
-  const int p_last = min(p0 + TILE, n_nu) - 1;
+  const int p_last = min(p0 + TILE, p_end) - 1;
   const size_t bd = (size_t)b * n_depth + d;  // row of this (model, depth)
   const int w = iw_max[bd];
   // a line reaches the tile iff its center lies in (p0 - w, p_last + w]
@@ -164,7 +179,7 @@ line_opacity_kernel(const T* __restrict__ grid, const T* __restrict__ line_nu,
   const int l_end = first_at_or_below(center, n_lines, p0 - w);
 
   const size_t row = bd * n_lines;
-  const T g = p < n_nu ? grid[p] : T(0);
+  const T g = p < p_end ? grid[p] : T(0);
   const T y_scale = T(SQRT_PI * PI);
   const T phi_scale = T(SQRT_PI);
   T acc = T(0);
@@ -182,7 +197,7 @@ line_opacity_kernel(const T* __restrict__ grid, const T* __restrict__ line_nu,
       s_iw[threadIdx.x] = iw[row + l];
     }
     __syncthreads();
-    if (p < n_nu) {
+    if (p < p_end) {
       for (int i = 0; i < n; ++i) {
         const int off = p - s_center[i];
         const int half = s_iw[i];
@@ -196,44 +211,47 @@ line_opacity_kernel(const T* __restrict__ grid, const T* __restrict__ line_nu,
       }
     }
   }
-  if (p < n_nu) out[bd * n_nu + p] = acc;
+  if (p < p_end) out[bd * n_out + (p - p_begin)] = acc;
 }
 
 template <typename T>
 int launch(const T* grid, const T* line_nu, const int* center, const T* alpha,
            const T* gamma, const T* doppler, const int* iw, const int* iw_max,
-           T* out, int n_models, int n_lines, int n_depth, int n_nu,
-           cudaStream_t stream) {
-  dim3 blocks((n_nu + TILE - 1) / TILE, n_depth, n_models);
+           T* out, int n_models, int n_lines, int n_depth, int p_begin,
+           int n_out, cudaStream_t stream) {
+  dim3 blocks((n_out + TILE - 1) / TILE, n_depth, n_models);
   line_opacity_kernel<T><<<blocks, TILE, 0, stream>>>(
       grid, line_nu, center, alpha, gamma, doppler, iw, iw_max, out, n_lines,
-      n_depth, n_nu);
+      n_depth, p_begin, n_out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// grid: [n_nu]; line_nu, center: [n_lines]; alpha, gamma, doppler, iw:
-// [n_models, n_depth, n_lines] row-major; iw_max: [n_models, n_depth];
-// out: [n_models, n_depth, n_nu].
+// grid: [n_nu], the global grid; line_nu, center: [n_lines]; alpha, gamma,
+// doppler, iw: [n_models, n_depth, n_lines] row-major; iw_max: [n_models,
+// n_depth]; out: [n_models, n_depth, n_out], pixels [p_begin, p_begin +
+// n_out) of the grid.
 extern "C" int line_opacity_f32(const float* grid, const float* line_nu,
                                 const int* center, const float* alpha,
                                 const float* gamma, const float* doppler,
                                 const int* iw, const int* iw_max, float* out,
-                                int n_models, int n_lines, int n_depth, int n_nu,
-                                void* stream) {
+                                int n_models, int n_lines, int n_depth,
+                                int p_begin, int n_out, void* stream) {
   return launch<float>(grid, line_nu, center, alpha, gamma, doppler, iw, iw_max,
-                       out, n_models, n_lines, n_depth, n_nu, (cudaStream_t)stream);
+                       out, n_models, n_lines, n_depth, p_begin, n_out,
+                       (cudaStream_t)stream);
 }
 
 extern "C" int line_opacity_f64(const double* grid, const double* line_nu,
                                 const int* center, const double* alpha,
                                 const double* gamma, const double* doppler,
                                 const int* iw, const int* iw_max, double* out,
-                                int n_models, int n_lines, int n_depth, int n_nu,
-                                void* stream) {
+                                int n_models, int n_lines, int n_depth,
+                                int p_begin, int n_out, void* stream) {
   return launch<double>(grid, line_nu, center, alpha, gamma, doppler, iw, iw_max,
-                        out, n_models, n_lines, n_depth, n_nu, (cudaStream_t)stream);
+                        out, n_models, n_lines, n_depth, p_begin, n_out,
+                        (cudaStream_t)stream);
 }
 
 extern "C" const char* line_opacity_error_string(int status) {

@@ -8,17 +8,28 @@ reference's adaptive window, or the accuracy-controlled one.
 This is the sum that ``stardis_tpu/opacities/line_kernel.py`` computes on
 TPU schedules (tiers, panels, split passes, 128-lane rounding) and that
 ``stardis_tpu/parallel/batch.py`` vmaps over models; the port keeps its
-semantics and none of its schedule.  ``accumulate_line_windows``
-dispatches on the device of its tensors: on the CPU it runs the plain torch
-version, on a CUDA device the hand-written kernel of csrc/line_opacity.cu,
-which takes every model of a batch in one launch.
+semantics and none of its schedule.  ``line_opacity_range`` dispatches on
+the device of its tensors: on the CPU it runs the plain torch version, on a
+CUDA device the hand-written kernel of csrc/line_opacity.cu, which takes
+every model of a batch in one launch.
 Both read one integer half-window array computed here, so an FMA-contracted
 or reordered window formula cannot flip a window-edge pixel between them.
+
+Every evaluation covers a pixel range [p_begin, p_begin + n_out) of the
+global grid (default the whole grid): the counterpart of
+``accumulate_pairs_blocked`` (line_kernel.py:1316), the per-segment program
+of ``parallel.sharding.segmented_spectrum``.  The grid, the centres and the
+windows stay global, so a range holds exactly the columns of the full sum.
+The one entry point is ``prepare_line_opacity`` (the checks and the
+kernel's layout, once per line set) followed by ``line_opacity_range``
+(one launch per range), so the K ranges of a segmented run share one
+layout.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -100,43 +111,113 @@ def window_half_widths(alpha, gamma, doppler, d_nu, n_nu, window_mode="reference
     return torch.clamp(torch.floor(win), max=float(n_nu + 1)).to(torch.int32)
 
 
-def accumulate_line_windows(grid, line_nu, centers, alpha, gamma, doppler, iw):
-    """alpha_line_at_nu = sum over lines of alpha * phi(nu - nu_line)
-    within each (line, depth) window: the plain version on the CPU, Kernel 1
-    on a CUDA device.
+@dataclasses.dataclass
+class LineOpacityInputs:
+    """One line set's inputs to Kernel 1 or its plain version, checked and
+    laid out once (``prepare_line_opacity``) for any number of ranges."""
+
+    grid: torch.Tensor  # [N] global grid
+    line_nu: torch.Tensor  # [L]
+    centers: torch.Tensor  # [L]
+    alpha: torch.Tensor  # [B, L, D]; [B, D, L] on a CUDA device
+    gamma: torch.Tensor
+    doppler: torch.Tensor
+    iw: torch.Tensor  # int32, laid out as alpha
+    iw_max: torch.Tensor | None  # [B, D] on a CUDA device, else None
+    single: bool  # the caller passed one model without the B axis
+
+
+def prepare_line_opacity(grid, line_nu, centers, alpha, gamma, doppler, iw,
+                         plain=False):
+    """Checks and layout of one line set for ``line_opacity_range``.
 
     grid : [N] descending grid, minus a reference frequency
     line_nu : [L] line frequencies minus the same reference
     centers : [L] center pixels (line_center_indices)
     alpha, gamma, doppler : [B, L, D] for B models, or [L, D]
     iw : integer half-windows, shaped as alpha (window_half_widths)
-    returns [B, D, N], or [D, N]
-    """
-    if grid.device.type == "cuda":
-        return accumulate_line_opacity_cuda(grid, line_nu, centers, alpha, gamma,
-                                            doppler, iw)
-    if grid.device.type == "cpu":
-        return accumulate_line_opacity_plain(grid, line_nu, centers, alpha, gamma,
-                                             doppler, iw)
-    raise ValueError(f"no line-opacity path for device {grid.device}")
+
+    On a CUDA device: dtypes, device and shapes, the sort order the
+    kernel's line search needs, and the depth-major [B, D, L] copies and
+    per-depth widest window; on the CPU, or with ``plain``, the inputs as
+    they are, for the plain version."""
+    single = alpha.ndim == 2
+    if single:
+        alpha, gamma, doppler, iw = alpha[None], gamma[None], doppler[None], iw[None]
+    if plain or grid.device.type == "cpu":
+        return LineOpacityInputs(grid, line_nu, centers, alpha, gamma, doppler, iw,
+                                 None, single)
+    if grid.device.type != "cuda":
+        raise ValueError(f"no line-opacity path for device {grid.device}")
+    n_models, n_lines, n_depth = alpha.shape
+    dtype = alpha.dtype
+    tensors = (grid, line_nu, alpha, gamma, doppler)
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"line_opacity kernel takes float32/float64, not {dtype}")
+    if any(t.dtype != dtype for t in tensors):
+        raise TypeError("line_opacity kernel: mixed dtypes")
+    if any(not t.is_cuda or t.device != grid.device for t in (*tensors, centers, iw)):
+        raise ValueError("line_opacity kernel: all tensors must be on one CUDA device")
+    if grid.ndim != 1 or line_nu.shape != (n_lines,) or centers.shape != (n_lines,):
+        raise ValueError("line_opacity kernel: grid must be [N], line_nu/centers [L]")
+    if any(t.shape != alpha.shape for t in (gamma, doppler, iw)):
+        raise ValueError("line_opacity kernel: alpha/gamma/doppler/iw must be [B, L, D]")
+    centers = centers.to(torch.int32).contiguous()
+    if n_lines > 1 and not bool((centers[1:] <= centers[:-1]).all()):
+        raise ValueError(
+            "line_opacity kernel: lines must be sorted by frequency "
+            "(non-increasing center pixels)"
+        )
+    # depth-major [B, D, L] so a block's line chunk loads are coalesced
+    iw_t = iw.to(torch.int32).transpose(1, 2).contiguous()
+    iw_max = iw_t.amax(dim=2) if n_lines else iw_t.new_zeros((n_models, n_depth))
+    return LineOpacityInputs(
+        grid.contiguous(), line_nu.contiguous(), centers,
+        alpha.transpose(1, 2).contiguous(), gamma.transpose(1, 2).contiguous(),
+        doppler.transpose(1, 2).contiguous(), iw_t, iw_max.contiguous(), single,
+    )
+
+
+def line_opacity_range(prepared, p_begin=0, n_out=None):
+    """The sum over pixels [p_begin, p_begin + n_out) of the global grid
+    (default all of it) from ``prepare_line_opacity``'s inputs: Kernel 1 on
+    a CUDA device, the plain version on the CPU.  Returns [B, D, n_out],
+    or [D, n_out] for a single model."""
+    n_nu = prepared.grid.shape[0]
+    n_out = n_nu - p_begin if n_out is None else n_out
+    if not (0 <= p_begin and n_out >= 0 and p_begin + n_out <= n_nu):
+        raise ValueError(f"pixel range [{p_begin}, {p_begin + n_out}) outside [0, {n_nu})")
+    q = prepared
+    if q.iw_max is None:
+        out = accumulate_line_opacity_plain(q.grid, q.line_nu, q.centers, q.alpha, q.gamma,
+                                            q.doppler, q.iw, p_begin=p_begin, n_out=n_out)
+    else:
+        out = accumulate_line_opacity_cuda(q, p_begin, n_out)
+    return out[0] if q.single else out
 
 
 def accumulate_line_opacity_plain(grid, line_nu, centers, alpha, gamma,
-                                  doppler, iw, budget=None):
-    """Plain torch version (shapes as accumulate_line_windows): models one
-    after another, each a loop over chunks of lines.  Each chunk masks the
-    pixel span its windows can reach ([C, D, span] <= ``budget``
-    elements), evaluates the Voigt profile on the in-window pairs and sums
-    them per (depth, pixel)."""
+                                  doppler, iw, budget=None, p_begin=0, n_out=None):
+    """Plain torch version (arguments as ``prepare_line_opacity``, range
+    as ``line_opacity_range``):
+    models one after another, each a loop over chunks of lines.  Each chunk
+    masks the pixel span its windows can reach ([C, D, span] <= ``budget``
+    elements over the whole grid), evaluates the Voigt profile on the
+    in-window pairs of the range and sums them per (depth, pixel).  The
+    chunks are cut on the whole grid whatever the range, so a range sums
+    each pixel's lines in the same groups and order as the full sum and
+    equals its columns exactly."""
     if alpha.ndim == 3:
         return torch.stack([
             accumulate_line_opacity_plain(grid, line_nu, centers, alpha[b], gamma[b],
-                                          doppler[b], iw[b], budget)
+                                          doppler[b], iw[b], budget, p_begin, n_out)
             for b in range(alpha.shape[0])
         ])
     n_nu = grid.shape[0]
+    n_out = n_nu - p_begin if n_out is None else n_out
+    p_end = p_begin + n_out
     n_lines, n_depth = alpha.shape
-    out = torch.zeros((n_depth, n_nu), dtype=alpha.dtype, device=alpha.device)
+    out = torch.zeros((n_depth, n_out), dtype=alpha.dtype, device=alpha.device)
     if n_lines == 0:
         return out
     if budget is None:
@@ -158,6 +239,7 @@ def accumulate_line_opacity_plain(grid, line_nu, centers, alpha, gamma,
             count = max(1, count // 2)
         sl = slice(start, start + count)
         start += count
+        p0, p1 = max(p0, p_begin), min(p1, p_end)
         if p1 <= p0:
             continue
         pix = pix_all[p0:p1]
@@ -171,7 +253,7 @@ def accumulate_line_opacity_plain(grid, line_nu, centers, alpha, gamma,
         )
         block = torch.zeros((n_depth, p1 - p0), dtype=out.dtype, device=out.device)
         block.index_put_((di, pi), phi * alpha[sl][li, di], accumulate=True)
-        out[:, p0:p1] += block
+        out[:, p0 - p_begin:p1 - p_begin] += block
     return out
 
 
@@ -188,62 +270,40 @@ def _voigt_in_window(delta_nu, doppler_width, gamma):
 
 
 _LINE_ARGS = (
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 )
 
 
-def accumulate_line_opacity_cuda(grid, line_nu, centers, alpha, gamma,
-                                 doppler, iw):
-    """Kernel 1 (csrc/line_opacity.cu) on CUDA tensors, all models in one
-    launch (shapes as accumulate_line_windows); raises on anything the
-    kernel does not take.  Lines must be sorted so that ``centers`` is
-    non-increasing (lines ascending in nu on a descending grid)."""
-    single = alpha.ndim == 2
-    if single:
-        alpha, gamma, doppler, iw = alpha[None], gamma[None], doppler[None], iw[None]
-    n_nu = grid.shape[0]
-    n_models, n_lines, n_depth = alpha.shape
-    dtype = alpha.dtype
-    tensors = (grid, line_nu, alpha, gamma, doppler)
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"line_opacity kernel takes float32/float64, not {dtype}")
-    if any(t.dtype != dtype for t in tensors):
-        raise TypeError("line_opacity kernel: mixed dtypes")
-    if any(not t.is_cuda or t.device != grid.device for t in (*tensors, centers, iw)):
-        raise ValueError("line_opacity kernel: all tensors must be on one CUDA device")
-    if grid.ndim != 1 or line_nu.shape != (n_lines,) or centers.shape != (n_lines,):
-        raise ValueError("line_opacity kernel: grid must be [N], line_nu/centers [L]")
-    if any(t.shape != alpha.shape for t in (gamma, doppler, iw)):
-        raise ValueError("line_opacity kernel: alpha/gamma/doppler/iw must be [B, L, D]")
+def accumulate_line_opacity_cuda(prepared, p_begin, n_out):
+    """Kernel 1 (csrc/line_opacity.cu) on ``prepare_line_opacity``'s CUDA
+    inputs: every model in one launch, pixels [p_begin, p_begin + n_out) of
+    the global grid; returns [B, D, n_out].  A launch over the whole grid
+    counts in ``launches``, one over a part of it in ``range_launches``."""
+    q = prepared
+    n_models, n_depth, n_lines = q.alpha.shape
+    dtype = q.alpha.dtype
+    out = torch.empty((n_models, n_depth, n_out), dtype=dtype, device=q.grid.device)
     if n_lines == 0:
-        out = torch.zeros((n_models, n_depth, n_nu), dtype=dtype, device=grid.device)
-        return out[0] if single else out
-    centers = centers.to(torch.int32).contiguous()
-    if n_lines > 1 and not bool((centers[1:] <= centers[:-1]).all()):
-        raise ValueError(
-            "line_opacity kernel: lines must be sorted by frequency "
-            "(non-increasing center pixels)"
-        )
-    grid = grid.contiguous()
-    line_nu = line_nu.contiguous()
-    # depth-major [B, D, L] so a block's line chunk loads are coalesced
-    alpha_t = alpha.transpose(1, 2).contiguous()
-    gamma_t = gamma.transpose(1, 2).contiguous()
-    doppler_t = doppler.transpose(1, 2).contiguous()
-    iw_t = iw.to(torch.int32).transpose(1, 2).contiguous()
-    iw_max = iw_t.amax(dim=2).contiguous()  # [B, D]
-    out = torch.empty((n_models, n_depth, n_nu), dtype=dtype, device=grid.device)
+        return out.zero_()
+    if n_out == 0:
+        return out
     suffix = "f32" if dtype == torch.float32 else "f64"
     fn = _cuda.bind("line_opacity", f"line_opacity_{suffix}", _LINE_ARGS)
     p = _cuda.ptr
     status = fn(
-        p(grid), p(line_nu), p(centers), p(alpha_t), p(gamma_t), p(doppler_t),
-        p(iw_t), p(iw_max), p(out), n_models, n_lines, n_depth, n_nu,
-        _cuda.stream_ptr(grid.device),
+        p(q.grid), p(q.line_nu), p(q.centers), p(q.alpha), p(q.gamma), p(q.doppler),
+        p(q.iw), p(q.iw_max), p(out), n_models, n_lines, n_depth, p_begin, n_out,
+        _cuda.stream_ptr(q.grid.device),
     )
-    accumulate_line_opacity_cuda.launches += 1
+    if n_out == q.grid.shape[0]:
+        accumulate_line_opacity_cuda.launches += 1
+    else:
+        accumulate_line_opacity_cuda.range_launches += 1
     _cuda.check("line_opacity", status)
-    return out[0] if single else out
+    return out
 
 
+#: launches of Kernel 1 over the whole grid, and over a part of it (the
+#: ranges of a segmented run)
 accumulate_line_opacity_cuda.launches = 0
+accumulate_line_opacity_cuda.range_launches = 0

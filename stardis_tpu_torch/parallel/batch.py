@@ -23,10 +23,13 @@ from ..pipeline import (
     SimulationPlan,
     _stage,
     build_simulation_plan,
+    device_constants,
     elemental_densities,
     file_cross_sections,
     model_geometry,
     not_ported,
+    prepare_lines,
+    resolve_device,
     spectrum_batch,
     stage_plasma_and_lines,
     validate_line_quants,
@@ -109,11 +112,12 @@ def batch_from_reference(batch) -> BatchInputs:
     )
 
 
-def run_batch(plan: SimulationPlan, batch: BatchInputs, mesh=None, device="cpu",
-              dtype=torch.float64, plain=False, timings=None):
+def run_batch(plan: SimulationPlan, batch: BatchInputs, mesh=None, device="cuda",
+              dtype=torch.float32, plain=False, timings=None):
     """Synthesize all atmospheres; returns F_nu [B, D, N].
 
-    device, dtype : as run_simulation; ``plain`` runs the kernels' plain
+    device, dtype : as run_simulation (the card in float32 by default; a
+        CUDA device without a GPU raises); ``plain`` runs the kernels' plain
         torch versions.  ``timings`` receives the wall time of each stage.
     mesh : not ported (multi-GPU, ROADMAP Queue 1).
 
@@ -130,13 +134,14 @@ def run_batch(plan: SimulationPlan, batch: BatchInputs, mesh=None, device="cpu",
             "the JAX batch evaluates molecules at the template's temperatures",
             queue=3,
         )
-    device = torch.device(device)
+    device = resolve_device(device, "run_batch")
+    consts = device_constants(plan, dtype, device)
     states, quants = [], []
     with _stage(timings, "plasma_and_lines", device):
         temps = torch.as_tensor(batch.temperatures, device=device).to(dtype)
         n_elem = torch.as_tensor(batch.n_elem, device=device).to(dtype)
         for b in range(temps.shape[0]):
-            state, lq = stage_plasma_and_lines(plan, temps[b], n_elem[b])
+            state, lq = stage_plasma_and_lines(plan, temps[b], n_elem[b], consts)
             states.append(state)
             quants.append(lq)
     with _stage(timings, "validate", device):
@@ -147,8 +152,10 @@ def run_batch(plan: SimulationPlan, batch: BatchInputs, mesh=None, device="cpu",
     correction = batch.photospheric_correction
     if correction is None and plan.inward_rays:
         raise ValueError("a spherical batch needs its per-model corrections")
+    with _stage(timings, "line_opacity", device):
+        lines = prepare_lines(plan, states, quants, consts, batch.file_sigmas, plain)
     f_nu, *_ = spectrum_batch(
-        plan, states, quants,
+        plan, states, lines, consts,
         ray_distances=batch.ray_distances,
         photospheric_correction=correction,
         file_sigmas=batch.file_sigmas,

@@ -13,7 +13,12 @@ The port of ``stardis_tpu/pipeline.py``, single device:
    accumulation (Kernel 1, once per line set for the whole batch, in the
    reference or the accuracy window mode), blackbody source, formal
    solution (Kernel 2, once for the whole batch) -> F_nu.  A single run
-   (``stage_spectrum``) is a batch of one.
+   (``stage_spectrum``) is a batch of one.  It runs on a pixel range of
+   the grid too: ``parallel.sharding.segmented_spectrum`` runs the grid as
+   K such ranges, one after another, to bound device memory.
+
+Entry points run on the card (``device="cuda"``, float32) unless the
+caller asks for the CPU; ``resolve_device`` raises when no GPU is present.
 
 The JAX package's window tiers (``line_window_tiers``) are a TPU schedule
 and have no counterpart: Kernel 1 takes the per-(line, depth) windows
@@ -35,10 +40,10 @@ from .constants import H_CGS
 from .opacities import continuum as cont
 from .opacities.file_tables import sigma_file
 from .opacities.line_kernel import (
-    accumulate_line_opacity_plain,
-    accumulate_line_windows,
     grid_min_step,
     line_center_indices,
+    line_opacity_range,
+    prepare_line_opacity,
     window_half_widths,
 )
 from .opacities.lines import (
@@ -46,7 +51,7 @@ from .opacities.lines import (
     compute_line_quantities,
     prepare_line_data,
 )
-from .plasma.lte import device_tables, solve_lte
+from .plasma.lte import DevicePlasmaTables, device_tables, solve_lte
 from .plasma.molecules import (
     MoleculeLineData,
     MoleculeTables,
@@ -74,6 +79,18 @@ def not_ported(what, roadmap_item, queue=1):
         f"{what} is not ported to stardis_tpu_torch yet "
         f"(ROADMAP.md Queue {queue}: {roadmap_item})"
     )
+
+
+def resolve_device(device, caller):
+    """``device`` as a torch.device; a CUDA device without a GPU raises
+    (the entry points never fall back to the CPU on their own)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{caller}(device='cuda'): no CUDA device is available; "
+            "pass device='cpu' (with dtype=torch.float64) to run on the CPU"
+        )
+    return device
 
 
 @dataclasses.dataclass
@@ -347,15 +364,53 @@ def _tensor(x, like):
     return torch.as_tensor(np.asarray(x, dtype=np.float64), device=like.device).to(like.dtype)
 
 
-def stage_plasma_and_lines(plan: SimulationPlan, temps, n_elem):
+@dataclasses.dataclass
+class DeviceConstants:
+    """The plan's request-independent device tensors, uploaded once
+    (``device_constants``) and shared by every stage that reads them: a
+    run builds them once, ``serving.SpectralService`` once per service."""
+
+    tables: DevicePlasmaTables
+    tracing_nus: torch.Tensor  # [N] Hz, descending
+    grid: torch.Tensor  # [N] tracing_nus minus the middle frequency nu_ref
+    lines: dict  # line-set key -> (line nu - nu_ref [L], center pixels [L])
+
+
+def device_constants(plan: SimulationPlan, dtype, device) -> DeviceConstants:
+    """Upload the plan's constants.  The line sum sees the grid only
+    through dnu = grid - line_nu; shifting both by the grid's middle
+    frequency in float64 before the cast removes the float32 cancellation
+    of two ~4.5e14 Hz values (ulp ~3e7 Hz, ~4% of a 0.01 AA pixel).  Every
+    pixel range of a segmented run uses this one global shift, so float32
+    rounds as in the unsegmented run."""
+    device = torch.device(device)
+    like = torch.empty(0, dtype=dtype, device=device)
+    nu_ref = float(plan.tracing_nus[len(plan.tracing_nus) // 2])
+    line_data = {"atomic": plan.line_data, "molecular": plan.molecule_line_data}
+    lines = {
+        key: (_tensor(ld.nu - nu_ref, like),
+              torch.as_tensor(line_center_indices(plan.tracing_nus, ld.nu),
+                              device=device).to(torch.int32))
+        for key, ld in line_data.items() if ld is not None and ld.n_lines > 0
+    }
+    return DeviceConstants(
+        tables=device_tables(plan.tables, dtype=dtype, device=device),
+        tracing_nus=_tensor(plan.tracing_nus, like),
+        grid=_tensor(plan.tracing_nus - nu_ref, like),
+        lines=lines,
+    )
+
+
+def stage_plasma_and_lines(plan: SimulationPlan, temps, n_elem, consts):
     """LTE solve + per-line quantities on the device of ``temps``.
 
+    consts : the plan's DeviceConstants (``device_constants``; its plasma
+        tables)
     Returns (state, quants): quants maps "atomic" / "molecular" to the
     (alpha, gamma, doppler) triple of that line set, or is None when no
     lines are configured.
     """
-    dt = device_tables(plan.tables, dtype=temps.dtype, device=temps.device)
-    state = solve_lte(temps, n_elem, dt)
+    state = solve_lte(temps, n_elem, consts.tables)
     quants = {}
     if plan.line_data is not None and plan.line_data.n_lines > 0:
         quants["atomic"] = compute_line_quantities(
@@ -401,18 +456,21 @@ def validate_line_quants(line_quants):
         )
 
 
-def compute_continuum(plan: SimulationPlan, state, tracing_nus, file_sigmas=None):
-    """All continuum sources -> dict of [D, N] tensors.
+def compute_continuum(plan: SimulationPlan, state, tracing_nus, file_sigmas=None,
+                      pixels=slice(None)):
+    """All continuum sources -> dict of [D, n] tensors over ``tracing_nus``.
 
     file_sigmas: optional [D, N] host arrays, one per plan.file_sources
-    entry, replacing the plan's (a batch member's own temperatures)."""
+    entry, replacing the plan's (a batch member's own temperatures).
+    pixels: the columns of the global grid that ``tracing_nus`` holds; the
+    file sigmas are cut to them."""
     n_nu = tracing_nus.shape[0]
     t = state.t
     out = {}
     for i, (name, sig, dplan) in enumerate(plan.file_sources):
         density = cont.species_density(dplan, state, plan.tables)
         sig = sig if file_sigmas is None else file_sigmas[i]
-        out[f"alpha_file_{name}"] = cont.calc_alpha_file(_tensor(sig, t), density)
+        out[f"alpha_file_{name}"] = cont.calc_alpha_file(_tensor(sig[:, pixels], t), density)
 
     if plan.bf is not None and len(plan.bf.level_flat):
         level_densities = state.level_number_density[
@@ -456,85 +514,118 @@ def compute_continuum(plan: SimulationPlan, state, tracing_nus, file_sigmas=None
     return out
 
 
-def _continuum_epsilon(plan, continuum):
-    """window_epsilon times the per-depth minimum over the grid of the
-    summed continuum (summed in the dict's order): [..., D]."""
-    total = None
-    for val in continuum.values():
-        total = val if total is None else total + val
-    return plan.window_epsilon * torch.amin(total, dim=-1)
+def _stack(tensors):
+    """torch.stack, without the copy for a batch of one."""
+    return tensors[0][None] if len(tensors) == 1 else torch.stack(tensors)
 
 
-def accuracy_epsilon(plan, state):
+def continuum_batch(plan: SimulationPlan, states, tracing_nus, file_sigmas=None,
+                    pixels=slice(None)):
+    """Every continuum source of each model over ``tracing_nus`` (the
+    columns ``pixels`` of the global grid): dict of [B, D, n] tensors.
+    file_sigmas: per plan.file_sources entry, a [B, D, N] host array."""
+    continua = [
+        compute_continuum(plan, state, tracing_nus,
+                          None if file_sigmas is None else [sig[b] for sig in file_sigmas],
+                          pixels)
+        for b, state in enumerate(states)
+    ]
+    # pop as it stacks, so each source is held once, not per model and stacked
+    return {key: _stack([c.pop(key) for c in continua]) for key in list(continua[0])}
+
+
+def accuracy_epsilon(plan, states, consts, file_sigmas=None, ranges=None):
     """Per-depth absolute truncation threshold [1/cm] of the accuracy
-    window mode: epsilon_rel times the minimum over the grid of the total
-    continuum extinction, so wing truncation is bounded relative to the
-    local continuum whatever dominates it."""
-    tracing = _tensor(plan.tracing_nus, state.t)
-    return _continuum_epsilon(plan, compute_continuum(plan, state, tracing))
+    window mode, [B, D]: epsilon_rel times the minimum over the grid of
+    each model's total continuum extinction (summed in the continuum
+    dict's order), so wing truncation is bounded relative to the local
+    continuum whatever dominates it.
+
+    A continuum-only pass over the pixel ranges ``ranges`` (default the
+    whole grid as one), keeping the minimum of each range's minimum: equal
+    to the whole grid's (a minimum does not depend on the order), with one
+    range's continuum on the device at a time.
+    file_sigmas : per plan.file_sources entry, a [B, D, N] host array."""
+    epsilon = None
+    for a, b in ranges or [(0, consts.grid.shape[0])]:
+        total = None
+        for val in continuum_batch(plan, states, consts.tracing_nus[a:b], file_sigmas,
+                                   slice(a, b)).values():
+            total = val if total is None else total + val
+        part = plan.window_epsilon * torch.amin(total, dim=-1)
+        epsilon = part if epsilon is None else torch.minimum(epsilon, part)
+    return epsilon
 
 
 #: the line sets and the opacity keys their sums go under
 LINE_SETS = (("atomic", "alpha_line_at_nu"), ("molecular", "molecule_alpha_line_at_nu"))
 
 
-def spectrum_batch(plan: SimulationPlan, states, line_quants, ray_distances=None,
-                   photospheric_correction=None, file_sigmas=None, plain=False,
-                   timings=None):
-    """Opacities + formal solution for a batch of models that share the
-    plan's grid, lines and configuration.
+def prepare_lines(plan: SimulationPlan, states, line_quants, consts, file_sigmas=None,
+                  plain=False, ranges=None):
+    """Kernel 1's inputs for every line set of a batch, prepared once for
+    any number of pixel ranges: [(opacity key, LineOpacityInputs, gamma,
+    doppler)].  The half-windows are clamped at the global grid's size
+    and read the global centres, so a window edge falls on the same pixel
+    whatever range evaluates it.
 
     states, line_quants : one stage-1 result per model
-    ray_distances : [B, G, T] host array; default the plan's, for each model
-    photospheric_correction : [B] host array, a number, or None (none)
-    file_sigmas : per plan.file_sources entry, a [B, D, N] host array
-    plain : run the plain torch versions of both kernels on any device
-        (the reference the kernels are checked against)
-    returns F_nu [B, D, N], total [B, D, N], opacities (each [B, ...]),
-        I_nus [B, D, N, T] or None
+    file_sigmas, ranges : as ``accuracy_epsilon``, which the accuracy
+        window mode reads
+    plain : prepare for the plain torch version on any device
     """
-    t0 = states[0].t
-    n_models = len(states)
-    tracing_nus = _tensor(plan.tracing_nus, t0)
-    with _stage(timings, "continuum", t0.device):
-        continua = [
-            compute_continuum(
-                plan, state, tracing_nus,
-                None if file_sigmas is None else [sig[b] for sig in file_sigmas],
-            )
-            for b, state in enumerate(states)
-        ]
-        opacities = {key: torch.stack([c[key] for c in continua]) for key in continua[0]}
-        epsilon = (
-            _continuum_epsilon(plan, opacities) if plan.window_mode == "accuracy" else None
-        )
-
-    line_data = {"atomic": plan.line_data, "molecular": plan.molecule_line_data}
-    # the line sum sees the grid only through dnu = grid - line_nu; shifting
-    # both by a reference frequency in float64 before the cast removes the
-    # float32 cancellation of two ~4.5e14 Hz values (ulp ~3e7 Hz, ~4% of a
-    # 0.01 AA pixel)
-    nu_ref = float(plan.tracing_nus[len(plan.tracing_nus) // 2])
-    grid_c = _tensor(plan.tracing_nus - nu_ref, t0)
-    accumulate = accumulate_line_opacity_plain if plain else accumulate_line_windows
+    out = []
+    n_nu = consts.grid.shape[0]
+    epsilon = (accuracy_epsilon(plan, states, consts, file_sigmas, ranges)
+               if plan.window_mode == "accuracy" else None)
     for key, label in LINE_SETS:
         if not line_quants[0] or key not in line_quants[0]:
             continue
-        with _stage(timings, "line_opacity", t0.device):
-            alpha, gamma, doppler = (
-                torch.stack([q[key][i] for q in line_quants]) for i in range(3)
-            )  # [B, L, D]
-            line_nu = line_data[key].nu
-            centers = torch.as_tensor(
-                line_center_indices(plan.tracing_nus, line_nu), device=t0.device
-            )
-            iw = window_half_widths(alpha, gamma, doppler, plan.d_nu, len(grid_c),
-                                    plan.window_mode, epsilon)
-            opacities[label] = accumulate(
-                grid_c, _tensor(line_nu - nu_ref, t0), centers, alpha, gamma, doppler, iw
-            )
-        opacities[label + "_gammas"] = gamma
-        opacities[label + "_doppler_widths"] = doppler
+        alpha, gamma, doppler = (
+            _stack([q[key][i] for q in line_quants]) for i in range(3)
+        )  # [B, L, D]
+        line_nu, centers = consts.lines[key]
+        iw = window_half_widths(alpha, gamma, doppler, plan.d_nu, n_nu,
+                                plan.window_mode, epsilon)
+        prepared = prepare_line_opacity(consts.grid, line_nu, centers, alpha, gamma,
+                                        doppler, iw, plain=plain)
+        out.append((label, prepared, gamma, doppler))
+    return out
+
+
+def spectrum_batch(plan: SimulationPlan, states, lines, consts, ray_distances=None,
+                   photospheric_correction=None, file_sigmas=None, plain=False,
+                   timings=None, pixels=None):
+    """Opacities + formal solution for a batch of models that share the
+    plan's grid, lines and configuration.
+
+    states : one stage-1 state per model
+    lines : ``prepare_lines``' result for these models (shared by the
+        ranges of a segmented run)
+    consts : the plan's DeviceConstants (``device_constants``)
+    ray_distances : [B, G, T] host array; default the plan's, for each model
+    photospheric_correction : [B] host array, a number, or None (none)
+    file_sigmas : per plan.file_sources entry, a [B, D, N] host array
+    plain : run Kernel 2's plain torch version on any device (Kernel 1's
+        follows ``prepare_lines(plain=)``): the reference the kernels are
+        checked against
+    pixels : (a, b), the pixel range [a, b) of the grid to synthesize;
+        default the whole grid
+    returns F_nu [B, D, n], total [B, D, n], opacities (each [B, ...]),
+        I_nus [B, D, n, T] or None, over the n pixels of the range
+    """
+    t0 = states[0].t
+    n_models = len(states)
+    a, b = (0, consts.grid.shape[0]) if pixels is None else pixels
+    tracing_nus = consts.tracing_nus[a:b]
+    with _stage(timings, "continuum", t0.device):
+        opacities = continuum_batch(plan, states, tracing_nus, file_sigmas, slice(a, b))
+
+    with _stage(timings, "line_opacity", t0.device):
+        for label, prepared, gamma, doppler in lines:
+            opacities[label] = line_opacity_range(prepared, a, b - a)
+            opacities[label + "_gammas"] = gamma
+            opacities[label + "_doppler_widths"] = doppler
 
     with _stage(timings, "formal_solution", t0.device):
         total = None
@@ -542,7 +633,7 @@ def spectrum_batch(plan: SimulationPlan, states, line_quants, ray_distances=None
             if "gammas" in key or "doppler" in key:
                 continue
             total = val if total is None else total + val
-        source = torch.stack([blackbody_flux_at_nu(tracing_nus, s.t) for s in states])
+        source = _stack([blackbody_flux_at_nu(tracing_nus, s.t) for s in states])
         if ray_distances is None:
             ray_distances = np.repeat(plan.ray_distances[None], n_models, axis=0)
         trace = raytrace_plain if plain else raytrace
@@ -558,33 +649,62 @@ def spectrum_batch(plan: SimulationPlan, states, line_quants, ray_distances=None
     return f_nu, total, opacities, i_nus
 
 
-def stage_spectrum(plan: SimulationPlan, state, line_quants, plain=False,
-                   timings=None):
+def stage_spectrum(plan: SimulationPlan, state, line_quants, consts, plain=False,
+                   timings=None, ray_distances=None, file_sigmas=None):
     """Opacities + formal solution of one model -> (F_nu, total, opacities,
-    I_nus): ``spectrum_batch`` on a batch of one."""
+    I_nus): ``prepare_lines`` and ``spectrum_batch`` on a batch of one.
+
+    consts : the plan's DeviceConstants (``device_constants``)
+    ray_distances : [G, T] host array replacing the plan's (a served
+        request's own geometry)
+    file_sigmas : per plan.file_sources entry, a [D, N] host array
+        replacing the plan's (a served request's own temperatures)
+    """
+    sigmas = None if file_sigmas is None else [np.asarray(s)[None] for s in file_sigmas]
+    with _stage(timings, "line_opacity", state.t.device):
+        lines = prepare_lines(plan, [state], [line_quants], consts, sigmas, plain)
     f_nu, total, opacities, i_nus = spectrum_batch(
-        plan, [state], [line_quants],
+        plan, [state], lines, consts,
+        ray_distances=None if ray_distances is None else np.asarray(ray_distances)[None],
         photospheric_correction=plan.photospheric_correction,
-        plain=plain, timings=timings,
+        file_sigmas=sigmas, plain=plain, timings=timings,
     )
     return (f_nu[0], total[0], {k: v[0] for k, v in opacities.items()},
             None if i_nus is None else i_nus[0])
 
 
-def run_simulation(plan: SimulationPlan, device="cpu", dtype=torch.float64,
-                   plain=False, timings=None):
+def run_simulation(plan: SimulationPlan, device="cuda", dtype=torch.float32,
+                   plain=False, timings=None, nu_segments=1):
     """Both device stages; returns (F_nu, totals, opacities, I_nus, state).
 
-    ``timings``: optional dict that receives the wall time of each stage
-    (the device is synchronised around each)."""
-    device = torch.device(device)
+    device, dtype : the card in float32 unless asked otherwise; a CUDA
+        device without a GPU raises
+    nu_segments : K > 1 runs the spectrum as K pixel ranges one after
+        another (``parallel.sharding.segmented_spectrum``): totals and
+        opacities are then host NumPy arrays when the plan tracks I_nu
+        (``result_options.return_radiation_field``), else None and {}
+    timings : optional dict that receives the wall time of each stage
+        (the device is synchronised around each)."""
+    device = resolve_device(device, "run_simulation")
+    consts = device_constants(plan, dtype, device)
     with _stage(timings, "plasma_and_lines", device):
         temps = torch.as_tensor(plan.temperatures, device=device).to(dtype)
         n_elem = torch.as_tensor(plan.n_elem, device=device).to(dtype)
-        state, line_quants = stage_plasma_and_lines(plan, temps, n_elem)
+        state, line_quants = stage_plasma_and_lines(plan, temps, n_elem, consts)
     with _stage(timings, "validate", device):
         validate_line_quants(line_quants)
+    if int(nu_segments) > 1:
+        from .parallel.sharding import segmented_spectrum
+
+        collect = plan.track_individual_intensities
+        out = segmented_spectrum(plan, state, line_quants, int(nu_segments), consts,
+                                 collect_opacities=collect, plain=plain, timings=timings)
+        if collect:
+            f_nu, i_nus, opacities, total = out
+        else:
+            f_nu, i_nus, opacities, total = out, None, {}, None
+        return f_nu, total, opacities, i_nus, state
     f_nu, total, opacities, i_nus = stage_spectrum(
-        plan, state, line_quants, plain=plain, timings=timings
+        plan, state, line_quants, consts, plain=plain, timings=timings
     )
     return f_nu, total, opacities, i_nus, state

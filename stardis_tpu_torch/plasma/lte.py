@@ -56,6 +56,7 @@ class DevicePlasmaTables(NamedTuple):
     level_energy: torch.Tensor  # [L]
     level_g: torch.Tensor  # [L]
     level_slot: torch.Tensor  # [L] int64
+    slot_levels: torch.Tensor  # [S, M] int64 levels of each slot, padded with L
     h_slots: tuple  # (slot of H I, slot of H II); (0, 0) when H absent
     has_hydrogen: bool
 
@@ -79,6 +80,15 @@ def device_tables(tables: PlasmaTables, dtype=torch.float64,
     def index(x):
         return torch.as_tensor(np.asarray(x, dtype=np.int64), device=device)
 
+    # each slot's levels in level order, padded with the index L of an
+    # appended zero row, for the partition functions' segment sum
+    level_slot = np.asarray(tables.level_slot, dtype=np.int64)
+    n_slots, n_levels = len(tables.slot_element), len(level_slot)
+    per_slot = [np.flatnonzero(level_slot == s) for s in range(n_slots)]
+    slot_levels = np.full((n_slots, max([len(x) for x in per_slot] + [1])), n_levels)
+    for s, levels in enumerate(per_slot):
+        slot_levels[s, :len(levels)] = levels
+
     return DevicePlasmaTables(
         slot_element=index(tables.slot_element),
         slot_ion=index(tables.slot_ion),
@@ -89,7 +99,8 @@ def device_tables(tables: PlasmaTables, dtype=torch.float64,
         ion_mask=torch.as_tensor(np.ascontiguousarray(ion_mask), device=device),
         level_energy=real(tables.level_energy),
         level_g=real(tables.level_g),
-        level_slot=index(tables.level_slot),
+        level_slot=index(level_slot),
+        slot_levels=index(slot_levels),
         h_slots=h_slots,
         has_hydrogen=bool(has_h),
     )
@@ -113,14 +124,18 @@ class PlasmaState(NamedTuple):
 
 
 def _log_partition_functions(dt: DevicePlasmaTables, beta, n_slots):
-    """log U[s, d] via a segment logsumexp over levels."""
+    """log U[s, d] via a segment logsumexp over levels.  The segment sum
+    gathers each slot's levels into a padded [S, M, D] block and sums it
+    (``index_add`` on a CUDA device adds with atomics, in an order that
+    changes from run to run, so float32 results would too)."""
     x = torch.log(dt.level_g)[:, None] - beta[None, :] * dt.level_energy[:, None]
     idx = dt.level_slot[:, None].expand_as(x)
     seg_max = torch.full(
         (n_slots, x.shape[1]), -torch.inf, dtype=x.dtype, device=x.device
     ).scatter_reduce(0, idx, x, reduce="amax", include_self=True)
     shifted = torch.exp(x - seg_max[dt.level_slot])
-    seg_sum = torch.zeros_like(seg_max).index_add(0, dt.level_slot, shifted)
+    padded = torch.cat([shifted, shifted.new_zeros((1, shifted.shape[1]))])
+    seg_sum = padded[dt.slot_levels].sum(dim=1)
     return seg_max + torch.log(seg_sum)
 
 

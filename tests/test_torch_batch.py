@@ -107,7 +107,7 @@ def test_run_batch_matches_jax(grid):
         assert len(tb.file_sigmas) == 3 and tb.file_sigmas[0].shape == (3, 56, len(nus))
     else:
         assert tb.photospheric_correction is None and tb.file_sigmas is None
-    f = tbatch.run_batch(tplan, tb)
+    f = tbatch.run_batch(tplan, tb, device="cpu", dtype=torch.float64)
     assert f.shape == f_ref.shape == (3, 56, len(nus))
     np.testing.assert_allclose(f.numpy(), f_ref, rtol=RTOL, atol=1e-300)
 
@@ -133,7 +133,8 @@ def test_port_host_phase_builds_the_same_batch(grid):
     assert ours.keys() == theirs.keys()
     for name in ours:
         np.testing.assert_allclose(ours[name], theirs[name], rtol=1e-12, err_msg=name)
-    np.testing.assert_allclose(tbatch.run_batch(tplan, tb).numpy(), f_ref, rtol=RTOL,
+    np.testing.assert_allclose(tbatch.run_batch(tplan, tb, device="cpu", dtype=torch.float64).numpy(), f_ref,
+                               rtol=RTOL,
                                atol=1e-300)
 
 
@@ -144,9 +145,10 @@ def test_members_match_single_runs(grid):
     config, adata, model0 = t_parse(dict(cfg))
     models = [model0] + [t_read_model(config, adata, p) for p in paths[1:]]
     tplan, tb = tbatch.make_batch(config, adata, models, nus)
-    f = tbatch.run_batch(tplan, tb).numpy()
+    f = tbatch.run_batch(tplan, tb, device="cpu", dtype=torch.float64).numpy()
     for b, model in enumerate(models):
-        single = tpipe.run_simulation(tpipe.build_simulation_plan(config, adata, model, nus))
+        single = tpipe.run_simulation(tpipe.build_simulation_plan(config, adata, model, nus),
+                                      device="cpu", dtype=torch.float64)
         np.testing.assert_allclose(f[b], single[0].numpy(), rtol=1e-12, atol=1e-300,
                                    err_msg=f"member {b}")
 

@@ -45,7 +45,8 @@ def test_line_kernel_matches_plain(cuda, dtype):
     grid, line_nu, centers, alpha, gamma, doppler, d_nu = _lines(dtype, cuda)
     iw = tlk.window_half_widths(alpha, gamma, doppler, d_nu, grid.shape[0])
     before = tlk.accumulate_line_opacity_cuda.launches
-    ours = tlk.accumulate_line_windows(grid, line_nu, centers, alpha, gamma, doppler, iw)
+    ours = tlk.line_opacity_range(
+        tlk.prepare_line_opacity(grid, line_nu, centers, alpha, gamma, doppler, iw))
     torch.cuda.synchronize()
     assert tlk.accumulate_line_opacity_cuda.launches == before + 1
     plain = tlk.accumulate_line_opacity_plain(grid, line_nu, centers, alpha, gamma, doppler, iw)
@@ -61,8 +62,8 @@ def test_line_kernel_rejects_unsorted_lines(cuda):
     grid, line_nu, centers, alpha, gamma, doppler, d_nu = _lines(torch.float32, cuda)
     with pytest.raises(ValueError, match="sorted"):
         iw = tlk.window_half_widths(alpha, gamma, doppler, d_nu, grid.shape[0])
-        tlk.accumulate_line_windows(grid, line_nu.flip(0), centers.flip(0), alpha, gamma,
-                                    doppler, iw)
+        tlk.prepare_line_opacity(grid, line_nu.flip(0), centers.flip(0), alpha, gamma,
+                                 doppler, iw)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -134,8 +135,8 @@ def test_line_kernel_model_axis_matches_plain(cuda, dtype, mode):
     eps = 1e-6 * alpha_b.amax(dim=1) if mode == "accuracy" else None
     iw = tlk.window_half_widths(alpha_b, gamma_b, doppler_b, d_nu, grid.shape[0], mode, eps)
     before = tlk.accumulate_line_opacity_cuda.launches
-    ours = tlk.accumulate_line_windows(grid, line_nu, centers, alpha_b, gamma_b, doppler_b,
-                                       iw)
+    ours = tlk.line_opacity_range(
+        tlk.prepare_line_opacity(grid, line_nu, centers, alpha_b, gamma_b, doppler_b, iw))
     torch.cuda.synchronize()
     assert tlk.accumulate_line_opacity_cuda.launches == before + 1
     assert ours.shape == (3, alpha.shape[1], grid.shape[0])
@@ -147,3 +148,55 @@ def test_line_kernel_model_axis_matches_plain(cuda, dtype, mode):
     else:
         err = np.abs(ours - plain).max(axis=2)
         assert (err <= 1e-5 * np.abs(plain).max(axis=2)).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_range_launch_equals_full_launch_and_plain(cuda, dtype):
+    """Kernel 1 over K = 3 pixel ranges (the grid's 2000 pixels not
+    divisible by 3) equals the full launch bit for bit; in float64 each
+    range equals the plain range sum at 1e-12."""
+    grid, line_nu, centers, alpha, gamma, doppler, d_nu = _lines(dtype, cuda)
+    iw = tlk.window_half_widths(alpha, gamma, doppler, d_nu, grid.shape[0])
+    prepared = tlk.prepare_line_opacity(grid, line_nu, centers, alpha, gamma, doppler, iw)
+    full = tlk.line_opacity_range(prepared)
+    before = tlk.accumulate_line_opacity_cuda.range_launches
+    bounds = [(0, 667), (667, 1334), (1334, 2000)]
+    parts = [tlk.line_opacity_range(prepared, a, b - a) for a, b in bounds]
+    torch.cuda.synchronize()
+    assert tlk.accumulate_line_opacity_cuda.range_launches == before + 3
+    assert torch.equal(torch.cat(parts, dim=1), full)
+    if dtype == torch.float64:
+        for (a, b), part in zip(bounds, parts):
+            plain = tlk.accumulate_line_opacity_plain(grid, line_nu, centers, alpha, gamma,
+                                                      doppler, iw, p_begin=a, n_out=b - a)
+            torch.testing.assert_close(part, plain, rtol=1e-12, atol=0)
+
+
+def test_segmented_run_stardis_equals_unsegmented(cuda, tmp_path):
+    """run_stardis(nu_segments=3) on the card equals the unsegmented run,
+    F_nu and I_nu (float32, rtol 1e-6; bit for bit expected)."""
+    import stardis_tpu_torch
+    from stardis_tpu_torch import units as u
+    from stardis_tpu_torch.io.synthetic import write_marcs_file
+
+    model = str(tmp_path / "sun.mod")
+    write_marcs_file(model)
+    cfg = {
+        "stardis_config_version": 1.0,
+        "atom_data": "builtin:30",
+        "input_model": {"type": "marcs", "fname": model, "final_atomic_number": 30},
+        "opacity": {"bf": {"H_I": {}}, "ff": {"H_I": {}}, "rayleigh": ["H"],
+                    "line": {"disable": False, "broadening": ["radiation", "van_der_waals"],
+                             "vald_linelist": {"use_linelist": True,
+                                               "use_vald_broadening": True}}},
+        "no_of_thetas": 10,
+        "result_options": {"return_radiation_field": True},
+    }
+    lam = u.Quantity(np.arange(5880.0, 5900.0, 0.01), u.AA)
+    whole = stardis_tpu_torch.run_stardis(cfg, lam).stellar_radiation_field
+    parts = stardis_tpu_torch.run_stardis(cfg, lam, nu_segments=3).stellar_radiation_field
+    assert whole.F_nu.device.type == "cuda" and whole.F_nu.dtype == torch.float32
+    torch.testing.assert_close(parts.F_nu, whole.F_nu, rtol=1e-6, atol=0)
+    torch.testing.assert_close(parts.I_nus, whole.I_nus, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(parts.opacities.total_alphas,
+                               whole.opacities.total_alphas.cpu().numpy(), rtol=1e-6, atol=0)

@@ -159,9 +159,9 @@ def test_out_of_slice_branches_raise(tmp_path, edit, ported_key):
     lam = tu.Quantity(np.arange(6560.0, 6561.0, 0.5), tu.AA)
     if ported_key == "raises":
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            stardis_tpu_torch.run_stardis(cfg, lam)
+            stardis_tpu_torch.run_stardis(cfg, lam, device="cpu", dtype=torch.float64)
         return
-    out = stardis_tpu_torch.run_stardis(cfg, lam)
+    out = stardis_tpu_torch.run_stardis(cfg, lam, device="cpu", dtype=torch.float64)
     assert np.isfinite(np.asarray(out.spectrum_nu)).all()
     if ported_key:
         assert ported_key in out.stellar_radiation_field.opacities.opacities_dict
@@ -171,28 +171,38 @@ def test_out_of_slice_branches_raise(tmp_path, edit, ported_key):
 
 
 def test_spherical_and_partition_options_raise(tmp_path):
-    """Spherical models run (the inward sweep is ported); segments and
-    mesh= still raise."""
-    lam = tu.Quantity(np.arange(6560.0, 6561.0, 0.5), tu.AA)
+    """Spherical models run (the inward sweep is ported); nu_segments=2
+    runs and equals the unsegmented run; a bad segment count and mesh=
+    raise."""
+    lam = tu.Quantity(np.arange(6560.0, 6561.0, 0.1), tu.AA)
     sph = str(tmp_path / "sph.mod")
     write_marcs_file(sph, spherical=True)
     cfg = _base_config(tmp_path)
     cfg["input_model"]["fname"] = sph
-    assert (np.asarray(stardis_tpu_torch.run_stardis(cfg, lam).spectrum_nu) > 0).all()
-    with pytest.raises(NotImplementedError, match="segments"):
-        stardis_tpu_torch.run_stardis(_base_config(tmp_path), lam, nu_segments=2)
+    whole = stardis_tpu_torch.run_stardis(cfg, lam, device="cpu", dtype=torch.float64)
+    assert (np.asarray(whole.spectrum_nu) > 0).all()
+    halves = stardis_tpu_torch.run_stardis(cfg, lam, device="cpu", dtype=torch.float64,
+                                           nu_segments=2)
+    np.testing.assert_allclose(halves.stellar_radiation_field.F_nu.numpy(),
+                               whole.stellar_radiation_field.F_nu.numpy(), rtol=1e-12, atol=0)
+    with pytest.raises(ValueError, match="'auto'"):
+        stardis_tpu_torch.run_stardis(cfg, lam, device="cpu", nu_segments="many")
     with pytest.raises(NotImplementedError, match="multi-GPU"):
-        stardis_tpu_torch.run_stardis(_base_config(tmp_path), lam, mesh=object())
+        stardis_tpu_torch.run_stardis(_base_config(tmp_path), lam, mesh=object(), device="cpu", dtype=torch.float64)
     with pytest.raises(TypeError):
-        stardis_tpu_torch.run_stardis(_base_config(tmp_path), np.arange(3.0))
+        stardis_tpu_torch.run_stardis(_base_config(tmp_path), np.arange(3.0), device="cpu", dtype=torch.float64)
 
 
 def test_cuda_device_without_gpu_raises(tmp_path):
+    """The entry points run on the card by default and raise without one;
+    they never fall back to the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present; the no-GPU error path does not apply")
     lam = tu.Quantity(np.arange(6560.0, 6561.0, 0.5), tu.AA)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         stardis_tpu_torch.run_stardis(_base_config(tmp_path), lam, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stardis_tpu_torch.run_stardis(_base_config(tmp_path), lam)
 
 
 def test_tf32_switch_is_scoped_to_the_bf_product(tmp_path, monkeypatch):
@@ -213,6 +223,6 @@ def test_tf32_switch_is_scoped_to_the_bf_product(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     config, adata, model = parse_config_to_model(_base_config(tmp_path))
     nus = tu.Quantity(np.arange(6560.0, 6562.0, 0.5), tu.AA).to(tu.Hz, tu.spectral()).value
-    tpipe.run_simulation(tpipe.build_simulation_plan(config, adata, model, nus))
+    tpipe.run_simulation(tpipe.build_simulation_plan(config, adata, model, nus), device="cpu", dtype=torch.float64)
     assert seen == [False]
     assert torch.backends.cuda.matmul.allow_tf32 is True

@@ -95,7 +95,8 @@ def test_file_opacities_end_to_end_match_jax(table_sets, tmp_path):
     path.write_text(yaml.safe_dump(cfg))
     lams = np.arange(6560.0, 6570.0, 0.1)
     ref = stardis_tpu.run_stardis(str(path), ju.Quantity(lams, ju.AA))
-    ours = stardis_tpu_torch.run_stardis(copy.deepcopy(cfg), tu.Quantity(lams, tu.AA))
+    ours = stardis_tpu_torch.run_stardis(copy.deepcopy(cfg), tu.Quantity(lams, tu.AA),
+                                         device="cpu", dtype=torch.float64)
     rf, rf_ref = ours.stellar_radiation_field, ref.stellar_radiation_field
     np.testing.assert_allclose(rf.F_nu.numpy(), np.asarray(rf_ref.F_nu), rtol=1e-9, atol=1e-300)
     for name in SOURCES:

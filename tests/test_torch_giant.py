@@ -68,7 +68,7 @@ def test_giant_with_every_branch_matches_jax(tmp_path, coupled):
     synth_linelist(atom_data, N_LINES, *LINE_RANGE)
     synth_molecule_linelist(atom_data, N_MOL_LINES, *LINE_RANGE)
     ours = stardis_tpu_torch.run_stardis(copy.deepcopy(cfg), tu.Quantity(lams, tu.AA),
-                                         atom_data=atom_data)
+                                         atom_data=atom_data, device="cpu", dtype=torch.float64)
 
     path = tmp_path / "c.yml"
     path.write_text(yaml.safe_dump(cfg))

@@ -154,14 +154,14 @@ def test_dispatch_on_cpu_is_plain_and_empty_set():
     centers = t(tlk.line_center_indices(nus, line_nu))
     d_nu = tlk.grid_min_step(nus)
     iw = tlk.window_half_widths(t(alpha), t(gamma), t(doppler), d_nu, len(nus))
-    out = tlk.accumulate_line_windows(
+    out = tlk.line_opacity_range(tlk.prepare_line_opacity(
         t(nus - nu_ref), t(line_nu - nu_ref), centers, t(alpha), t(gamma), t(doppler), iw,
-    )
+    ))
     np.testing.assert_array_equal(out.numpy(), _port(nus, line_nu, alpha, gamma, doppler))
-    empty = tlk.accumulate_line_windows(
+    empty = tlk.line_opacity_range(tlk.prepare_line_opacity(
         t(nus), t(line_nu[:0]), centers[:0], t(alpha[:0]), t(gamma[:0]),
         t(doppler[:0]), iw[:0],
-    )
+    ))
     assert empty.shape == (alpha.shape[1], len(nus)) and not empty.any()
 
 

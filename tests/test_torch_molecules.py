@@ -218,7 +218,7 @@ def test_cool_star_mgh_end_to_end_matches_jax(cool_star, coupled):
     atom_data = t_builtin(30, include_linelists=True, include_molecules=True)
     atom_data.linelist_molecules = Table(mgh)
     ours = stardis_tpu_torch.run_stardis(copy.deepcopy(cfg), tu.Quantity(lams, tu.AA),
-                                         atom_data=atom_data)
+                                         atom_data=atom_data, device="cpu", dtype=torch.float64)
     np.testing.assert_allclose(np.asarray(ours.spectrum_nu), np.asarray(f_ref)[-1],
                                rtol=1e-9)
     assert np.asarray(opac_ref["molecule_alpha_line_at_nu"]).max() > 0

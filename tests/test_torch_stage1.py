@@ -73,7 +73,8 @@ def stage1(request, tmp_path_factory):
     )
     tplan = tpipe.plan_from_reference(plan)
     t_state, t_quants = tpipe.stage_plasma_and_lines(
-        tplan, torch.from_numpy(tplan.temperatures), torch.from_numpy(tplan.n_elem)
+        tplan, torch.from_numpy(tplan.temperatures), torch.from_numpy(tplan.n_elem),
+        tpipe.device_constants(tplan, torch.float64, "cpu"),
     )
     return plan, state, quants, tplan, t_state, t_quants
 

@@ -121,7 +121,9 @@ def test_accuracy_epsilon_matches_jax(accuracy_run):
     t_state = tlte.PlasmaState(*[
         torch.from_numpy(np.array(getattr(state, f))) for f in tlte.PlasmaState._fields
     ])
-    ours = tpipe.accuracy_epsilon(tpipe.plan_from_reference(plan), t_state)
+    tplan = tpipe.plan_from_reference(plan)
+    consts = tpipe.device_constants(tplan, torch.float64, "cpu")
+    ours = tpipe.accuracy_epsilon(tplan, [t_state], consts)[0]
     np.testing.assert_allclose(ours.numpy(), ref, rtol=1e-12)
 
 
@@ -131,9 +133,9 @@ def test_accuracy_mode_end_to_end_matches_jax(accuracy_run):
     atom_data = synth_linelist(build_builtin_atom_data(30, include_linelists=True), 300,
                                lam_lo=6499.0, lam_hi=6506.0)
     ours = stardis_tpu_torch.run_stardis(copy.deepcopy(cfg), tu.Quantity(lams, tu.AA),
-                                         atom_data=atom_data)
+                                         atom_data=atom_data, device="cpu", dtype=torch.float64)
     np.testing.assert_allclose(ours.stellar_radiation_field.F_nu.numpy(), f_ref, rtol=1e-9,
                                atol=1e-300)
     # and through the carried JAX plan
-    f_carried = tpipe.run_simulation(tpipe.plan_from_reference(plan))[0].numpy()
+    f_carried = tpipe.run_simulation(tpipe.plan_from_reference(plan), device="cpu", dtype=torch.float64)[0].numpy()
     np.testing.assert_allclose(f_carried, f_ref, rtol=1e-9, atol=1e-300)
