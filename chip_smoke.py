@@ -5,14 +5,24 @@
 
 Phases (any failure exits non-zero and prints no result):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build both hand-written kernels from stardis_tpu_torch/csrc with nvcc;
+  2. build the four hand-written kernels from stardis_tpu_torch/csrc with
+     nvcc, one process per source, all started together;
   3. Kernel 1 (line opacity) against its plain torch version on the card,
      5k lines x 56 depths x 10k lambda: float64 at rtol 1e-12, float32 at
      max|diff| <= 1e-5 max|plain| per depth row; then both timed at the
      slice's shape (all 47,807 in-window lines, float32; bound 1e-4 per
-     row for the two summation orders of that many float32 terms);
+     row for the two summation orders of that many float32 terms); the
+     per-depth widest window (torch amax) timed; Kernel 1b (the line sum's
+     backward) against its plain version on the same inputs with a seeded
+     normal incoming gradient: float64 at 1e-12 and float32 at 1e-4 of each
+     depth's largest gradient, two launches equal bit for bit, both timed;
   4. Kernel 2 (formal solution) against its plain version at the full
      Sim100AA shape (56 depths x 10k lambda x 20 theta), float32 and float64;
+     Kernel 2b (its backward) against autograd of raytrace_plain there,
+     with and without a gradient on I_nu: float64 at 1e-9 of each
+     frequency column's largest gradient, float32 within 1.5x the plain
+     version's float32 error (2-norm) against the float64 gradient, two
+     launches equal bit for bit, both timed;
   5. the slice: run_stardis(device="cuda", dtype=float32) on Sim100AA with
      100k synthetic lines; F_nu finite and positive, both kernels launched
      by that run; warm wall time and per-stage times; and at 10k lines the
@@ -26,7 +36,8 @@ Phases (any failure exits non-zero and prints no result):
      giant's own, and the same with each frequency column scaled so that
      the per-gap tau spans all three weight regimes (each regime's share
      is printed and must be at least 1 %): float64 at 1e-12, float32 at
-     1e-5; both timed on the giant's own;
+     1e-5; both timed on the giant's own; Kernel 2b's inward variant on
+     both sets, held as in phase 4;
   7. the spherical cool giant (Teff 4000 K, log g 2, R 2e12 cm) through
      run_stardis(device="cuda", dtype=float32): molecules, three file
      opacity tables, 100k atomic + 20k molecular lines, 6500-6600 AA at
@@ -80,14 +91,35 @@ Phases (any failure exits non-zero and prints no result):
  12. a grid scan of the 16 batch models in chunks of 8, stopped after one
      chunk and resumed, equal bit for bit to an uninterrupted scan; and
      `python -m stardis_tpu_torch` on a JSON Sim100AA config with
-     --segments auto --ascii, against run_stardis (rtol 1e-6).
+     --segments auto --ascii, against run_stardis (rtol 1e-6);
+ 13. the gradient slice: Sim100AA at full width (100k lines, 56 depths,
+     10k lambda, 20 theta, float32) fitted by Adam on the card.  The loss is
+     the mean squared difference of the rotation- and instrument-broadened,
+     mean-normalised surface spectrum from one made at (T scale 1.021,
+     v sin i 11 km/s, sigma 3 px), from (1.0, 5.0, 2.0); loss.backward()
+     runs through stage 1, Kernels 1, 1b, 2, 2b and post-processing (their
+     launch counts printed); 5 Adam steps lower the loss; in float64 the
+     gradient matches central differences (rtol 5e-3) and, at 10k lines,
+     the all-plain path's gradient (1e-9); forward, backward and warm
+     step walls, the backward kernels' device times, the peak memory of a
+     step, and two float32 gradient runs compared (Kernels 1b and 2b must
+     be bit-equal; a stage-1 difference is traced to its op); the
+     spherical giant with molecules (pairwise and coupled) at 10k + 2k
+     lines: float64 d sum F_nu / dT at its most sensitive depth against a
+     central difference (rtol 5e-3), float32 finite; a 4-member spherical
+     batch's gradient through run_batch (Kernels 1b and 2b inward at B = 4),
+     each member's row against the all-plain path's in float64 (float64
+     kernel path at 1e-9, the float32 main path at 1e-5 of the member's
+     largest); and the peak memory of a segmented run at 250k points, K = 1
+     and K = 4, forward only and with its backward, beside util.memory's
+     forward-only estimate.
 
 The kernels build in parallel (one nvcc per source).  The last line of
 standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 the line before it is the card's name and power limit, and the line
 before that holds each kernel's launches (summed over the main paths of
-phases 5 and 7-12; the CLI runs in a process of its own and is not
+phases 5, 7-12 and 13; the CLI runs in a process of its own and is not
 counted), error, times and bound (the larger of the operations
 over the float32 peak and the bytes over the memory rate of an H100 SXM,
 from this run's inputs).
@@ -142,7 +174,8 @@ MEMORY_TRACKED_POINTS = 250_000
 RANGE_SEGMENTS = 3
 SERVE_TEFFS = (5777.0, 6300.0, 9000.0)
 SERVE_GIANT_TEFF = 4200.0
-KERNELS = ("line_opacity", "line_opacity_range", "formal_solution", "formal_solution_inward")
+KERNELS = ("line_opacity", "line_opacity_range", "formal_solution", "formal_solution_inward",
+           "line_opacity_grad", "formal_solution_grad", "formal_solution_grad_inward")
 # published peaks of an H100 SXM at 700 W (float32 outside the tensor
 # cores, HBM3), the bound_ms of each kernel
 PEAK_FP32_FLOPS = 67e12
@@ -155,6 +188,26 @@ VOIGT_FLOPS = {"I": 25, "II": 39, "III": 87, "IV": 134}
 # csrc/formal_solution.cu (tau 6, weights 8, the parabolic terms 17,
 # the recurrence 6); the inward sweep repeats it per gap
 TRACE_STEP_FLOPS = 37
+# operations of one in-window evaluation in Kernel 1b, counted from
+# csrc/line_opacity_grad.cu by Humlicek region (x, |x| + y, z^2 and the three
+# sums: 17; then the region's value-and-derivative chain), and of finishing
+# one (model, depth, line) pair (its shuffle tree and three outputs)
+GRAD_VOIGT_FLOPS = {"I": 47, "II": 83, "III": 185, "IV": 299}
+GRAD_PAIR_FLOPS = 30
+# operations of one reverse depth step of one ray in Kernel 2b, counted from
+# csrc/formal_solution_grad.cu (step_adjoint 95, tau and the seed 11); the
+# inward variant adds a recomputed forward step and a reverse step per gap
+TRACE_ADJ_STEP_FLOPS = 106
+# phase 13: the fit (examples/fit_stellar_parameters.py with instrumental
+# broadening added): parameters (T scale, v sin i [km/s], sigma [px])
+FIT_START = (1.0, 5.0, 2.0)
+FIT_TRUE = (1.021, 11.0, 3.0)
+FIT_STEP_SCALE = (1.0, 300.0, 30.0)  # per-parameter Adam scaling (the example's + sigma)
+FIT_LR = 1e-2  # a third of the example's, for five steps
+FIT_HALF = 64  # static rotation support [px]: v sin i up to 29 km/s
+FIT_RADIUS = 16  # static Gaussian support [px]: sigma up to 4 px
+FIT_STEPS = 5
+FIT_FD_STEPS = (1e-4, 1e-2, 1e-2)  # central-difference steps per parameter
 
 
 def log(msg):
@@ -297,6 +350,59 @@ def trace_bound(n_models, n_depth, n_nu, n_theta, itemsize, inward):
     return bound(flops, nbytes)
 
 
+def line_grad_bound(evaluations, n_models, n_lines, n_depth, n_out, itemsize):
+    """Kernel 1b's bound: the value-and-derivative operations of Kernel 1's
+    in-window evaluations and the per-pair finish, or reading the [B, D, L]
+    line arrays (three floats and the int32 window), the lines, the grid's
+    range and the incoming gradient [B, D, n_out] once and writing three
+    [B, D, L] gradients."""
+    pairs = n_models * n_depth * n_lines
+    flops = sum(GRAD_VOIGT_FLOPS[k] * v for k, v in evaluations.items()) + GRAD_PAIR_FLOPS * pairs
+    nbytes = (pairs * (3 * itemsize + 4) + n_lines * (itemsize + 4) + n_out * itemsize
+              + n_models * n_depth * n_out * itemsize + 3 * pairs * itemsize)
+    return bound(flops, nbytes)
+
+
+def trace_grad_bound(n_models, n_depth, n_nu, n_theta, itemsize, inward, with_i):
+    """Kernel 2b's bound: the reverse steps of every ray (and, spherical,
+    the recomputed and reversed inward sweep) and the theta sums, or
+    reading alpha, source, dL/dF_nu, the saved intensity (and dL/dI_nu)
+    once and writing the two gradients."""
+    rays = n_models * n_nu * n_theta
+    per_gap = TRACE_ADJ_STEP_FLOPS + (TRACE_STEP_FLOPS + TRACE_ADJ_STEP_FLOPS if inward else 0)
+    flops = rays * (n_depth - 1) * per_gap + 3 * n_models * n_depth * n_nu * n_theta
+    cells = n_models * n_depth * n_nu
+    nbytes = (5 * cells + cells * n_theta * (2 if with_i else 1)) * itemsize
+    return bound(flops, nbytes)
+
+
+def col_err(ours, ref):
+    """row_err over depth for each frequency column of [..., D, N]."""
+    return row_err(ours.transpose(-1, -2), ref.transpose(-1, -2))
+
+
+def norm_err(ours, ref):
+    """||ours - ref|| / ||ref||, 2-norms over every element."""
+    return ((ours - ref).norm() / ref.norm()).item()
+
+
+def kernel_device_ms(torch, fn, names):
+    """Device milliseconds of one call of ``fn`` spent in the kernels whose
+    names contain each of ``names`` (torch.profiler), by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for name in names:
+                if name in e.name:
+                    out[name] += (e.time_range.end - e.time_range.start) * 1e-3
+    return out
+
+
 def peak_bytes(torch, fn):
     """(peak device bytes allocated by ``fn`` over what was allocated
     before it, fn's result)."""
@@ -359,6 +465,8 @@ def main():
     from stardis_tpu_torch.radiation_field.blackbody import blackbody_flux_at_nu
 
     dev = torch.device("cuda")
+    # lets phase 13 run torch's deterministic mode (cuBLAS refuses it without)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     failures = []
@@ -374,12 +482,11 @@ def main():
 
     # --- 2. build: one nvcc per source, all started together ----------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        builds = {name: pool.submit(_cuda.load, name)
-                  for name in ("line_opacity", "formal_solution")}
+    with ThreadPoolExecutor(max_workers=len(_cuda.KERNELS)) as pool:
+        builds = {name: pool.submit(_cuda.load, name) for name in _cuda.KERNELS}
         for name, fut in builds.items():
             fut.result()
-    log(f"built both kernels in {time.perf_counter() - t0:.1f} s")
+    log(f"built {len(builds)} kernels in {time.perf_counter() - t0:.1f} s")
     for name in builds:
         for line in _cuda.BUILD_LOGS.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
@@ -429,6 +536,76 @@ def main():
         return lk.line_opacity_range(lk.prepare_line_opacity(*args, iw))
 
     report = {}
+
+    def check_trace_grad(label, a, s, r, w, corr, inward, timed):
+        """Kernel 2b against autograd of raytrace_plain on one model's
+        [D, N] inputs a, s (rays r [G, T]), with a seeded normal dL/dF_nu
+        and, in a second pass, dL/dI_nu too.  float64: 1e-9 of each
+        frequency column's largest gradient (the two sum the weights'
+        cancelling terms in other orders, and this gradient is
+        ill-conditioned where tau runs through the Taylor regime: one-ulp
+        input changes move the float64 gradient of tau-spanning columns by
+        ~2e-9 of it); float32: against the float64 gradient, its 2-norm
+        error no more than 1.5x the plain version's own float32 error (the
+        worst column's error, printed too, swings with the incoming
+        gradient's cancellations in both).  Two launches equal bit for
+        bit.  Returns the kernel's report entry when ``timed`` (float32)."""
+        dtype = a.dtype
+        n_depth, n_nu = a.shape
+        gen = torch.Generator(dev).manual_seed(5)
+        g_f = torch.randn((1, n_depth, n_nu), device=dev, dtype=dtype, generator=gen)
+        g_i = torch.randn((1, n_depth, n_nu, len(w)), device=dev, dtype=dtype, generator=gen)
+        corr_t = torch.full((1,), 1.0 if corr is None else corr, device=dev, dtype=dtype)
+        intensity = solver.raytrace(a, s, r, w, inward_rays=inward, photospheric_correction=corr,
+                                    track_individual_intensities=True)[1]
+        args = (a[None], s[None], r[None], w, corr_t, intensity[None])
+        name = "f64" if dtype == torch.float64 else "f32"
+        entry = None
+
+        def plain_of(*t, g_int):
+            return solver.raytrace_plain_backward(*t, g_int, inward_rays=inward,
+                                                  photospheric_correction=corr)
+
+        for with_i in (False, True):
+            gi = g_i if with_i else None
+            kern = solver.raytrace_grad_cuda(*args, g_f, gi, inward)
+            again = solver.raytrace_grad_cuda(*args, g_f, gi, inward)
+            plain = plain_of(a, s, r, w, g_f[0], g_int=None if gi is None else gi[0])
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(kern, again))
+            errs = [col_err(k[0], p)[0] for k, p in zip(kern, plain)]
+            if dtype == torch.float64:
+                ok = max(errs) <= 1e-9
+                detail = f"max column err / column max {errs[0]:.3e}, {errs[1]:.3e} (bound 1e-9)"
+            else:
+                exact = plain_of(a.double(), s.double(), r.double(), w.double(), g_f[0].double(),
+                                 g_int=None if gi is None else gi[0].double())
+                k_err = [norm_err(k[0].double(), e) for k, e in zip(kern, exact)]
+                p_err = [norm_err(p.double(), e) for p, e in zip(plain, exact)]
+                k_col = [col_err(k[0].double(), e)[0] for k, e in zip(kern, exact)]
+                p_col = [col_err(p.double(), e)[0] for p, e in zip(plain, exact)]
+                ok = all(ke <= 1.5 * pe for ke, pe in zip(k_err, p_err))
+                detail = (f"kernel vs plain {errs[0]:.3e}, {errs[1]:.3e} of the column max; "
+                          f"2-norm error against float64: kernel {k_err[0]:.3e}, {k_err[1]:.3e}, "
+                          f"plain {p_err[0]:.3e}, {p_err[1]:.3e} (bound 1.5x plain); worst "
+                          f"column: kernel {k_col[0]:.3e}, {k_col[1]:.3e}, plain {p_col[0]:.3e}, "
+                          f"{p_col[1]:.3e}")
+            log(f"kernel 2b {'inward ' if inward else ''}{name} ({label}, "
+                f"{'dF and dI' if with_i else 'dF'}): d/dalpha, d/dsource {detail}; two "
+                f"launches equal bit for bit: {same}")
+            if not (ok and same):
+                failures.append(f"kernel 2b {label} {name} with_i={with_i}: {detail}, same {same}")
+            if timed and not with_i and dtype == torch.float32:
+                err = max((k[0] - p).abs().max().item() for k, p in zip(kern, plain))
+                ms = cuda_ms(torch, lambda: solver.raytrace_grad_cuda(*args, g_f, None, inward), 20)
+                plain_ms = cuda_ms(torch, lambda: plain_of(a, s, r, w, g_f[0], g_int=None), 3)
+                bound_ms, bound_by = trace_grad_bound(1, n_depth, n_nu, len(w), 4, inward, False)
+                log(f"kernel 2b {'inward ' if inward else ''}f32 ({label}): kernel {ms:.3f} ms, "
+                    f"plain {plain_ms:.3f} ms, max abs err {err:.3e}; bound {bound_ms:.4f} ms "
+                    f"({bound_by})")
+                entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        return entry
 
     # --- 3. Kernel 1 against its plain version -----------------------------
     try:
@@ -485,6 +662,69 @@ def main():
     except Exception as exc:  # noqa: BLE001 - report every phase
         failures.append(f"kernel 1 phase: {exc!r}")
 
+    # --- 3b. Kernel 1b (the line sum's backward) against its plain version ---
+    try:
+        n_all = plan.line_data.n_lines
+        subset = torch.linspace(0, n_all - 1, N_LINES_KERNEL_CHECK).round().long().unique()
+        for dtype in (torch.float64, torch.float32):
+            args, iw = line_inputs(dtype, subset.numpy() if dtype == torch.float64 else None)
+            prep = lk.prepare_line_opacity(*args, iw)
+            n_lines, n_depth = iw.shape
+            n_nu = len(plan.tracing_nus)
+            g = torch.randn((1, n_depth, n_nu), device=dev, dtype=dtype,
+                            generator=torch.Generator(dev).manual_seed(4))
+            kern = lk.accumulate_line_opacity_grad_cuda(prep, g, 0, n_nu)
+            again = lk.accumulate_line_opacity_grad_cuda(prep, g, 0, n_nu)
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(kern, again))
+            start_ev = torch.cuda.Event(enable_timing=True)
+            end_ev = torch.cuda.Event(enable_timing=True)
+            start_ev.record()
+            plain = lk.accumulate_line_opacity_plain_backward(g[0], *args, iw)
+            end_ev.record()
+            torch.cuda.synchronize()
+            plain_ms = start_ev.elapsed_time(end_ev)  # one call, CUDA events
+            errs = [row_err(k[0], p.T) for k, p in zip(kern, plain)]
+            worst = max(e for e, _ in errs)
+            rows_ok = all(ok for _, ok in errs)
+            name = "f64" if dtype == torch.float64 else "f32"
+            # float64 rounds each of the two sums on its own order; in float32
+            # a deep (line, depth) pair sums up to 10k mixed-sign terms in 32
+            # lane-strided partial sums and a shuffle tree, the plain version
+            # chunk by chunk: ~sqrt(10k) ulp of the summands, bound 1e-4 of
+            # the depth's largest gradient
+            row_bound = 1e-12 if dtype == torch.float64 else 1e-4
+            log(f"kernel 1b {name} vs plain ({n_lines} lines x {n_depth} x {n_nu // 1000}k): max "
+                f"row err / row max d/dalpha {errs[0][0]:.3e}, d/dgamma {errs[1][0]:.3e}, "
+                f"d/ddoppler {errs[2][0]:.3e} (bound {row_bound:g}); two launches equal bit for "
+                f"bit: {same}; plain {plain_ms:.0f} ms")
+            if not (worst <= row_bound and rows_ok and same):
+                failures.append(f"kernel 1b {name} row err {worst:.3e}, same {same}")
+            if dtype == torch.float32:
+                err = max((k[0] - p.T).abs().max().item() for k, p in zip(kern, plain))
+                ms = cuda_ms(torch, lambda: lk.accumulate_line_opacity_grad_cuda(prep, g, 0, n_nu), 5)
+                evals = voigt_evaluations(
+                    plan.tracing_nus, plan.line_data.nu,
+                    lk.line_center_indices(plan.tracing_nus, plan.line_data.nu),
+                    args[4].double().cpu().numpy(), args[5].double().cpu().numpy(),
+                    iw.cpu().numpy())
+                bound_ms, bound_by = line_grad_bound(evals, 1, n_lines, n_depth, n_nu, 4)
+                log(f"kernel 1b f32 full slice: kernel {ms:.3f} ms, plain {plain_ms:.0f} ms (one "
+                    f"call), max abs err {err:.3e}; bound {bound_ms:.3f} ms ({bound_by})")
+                report["line_opacity_grad"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                               "bound_ms": bound_ms, "bound_by": bound_by,
+                                               "library_ms": None}
+                # the per-depth widest window of prepare_line_opacity (the JAX
+                # package's block-max windows, line_kernel.py:221, :265): one
+                # torch amax over [B, D, L] int32, bound by its bytes
+                amax_ms = cuda_ms(torch, lambda: prep.iw.amax(dim=2), 20)
+                amax_bytes = (prep.iw.numel() + prep.iw_max.numel()) * 4
+                log(f"block-max windows (torch amax over {list(prep.iw.shape)} int32): "
+                    f"{amax_ms:.4f} ms; bound {amax_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms (bytes)")
+            del args, iw, prep, kern, again, plain
+    except Exception as exc:  # noqa: BLE001
+        failures.append(f"kernel 1b phase: {exc!r}")
+
     # --- 4. Kernel 2 against its plain version -----------------------------
     try:
         for dtype in (torch.float64, torch.float32):
@@ -520,12 +760,31 @@ def main():
     except Exception as exc:  # noqa: BLE001
         failures.append(f"kernel 2 phase: {exc!r}")
 
+    # --- 4b. Kernel 2b (the formal solution's backward) against its plain version
+    try:
+        for dtype in (torch.float64, torch.float32):
+            _, total, _, _, state = run_simulation(plan, device=dev, dtype=dtype)
+            source = blackbody_flux_at_nu(
+                torch.as_tensor(plan.tracing_nus, device=dev).to(dtype), state.t)
+            ray = torch.as_tensor(plan.ray_distances, device=dev).to(dtype)
+            w = torch.as_tensor(plan.weights, device=dev).to(dtype)
+            entry = check_trace_grad("Sim100AA 56 x 10k x 20", total, source, ray, w, None,
+                                     False, True)
+            if entry:
+                report["formal_solution_grad"] = entry
+            del total, source, state
+    except Exception as exc:  # noqa: BLE001
+        failures.append(f"kernel 2b phase: {exc!r}")
+
     # launch counts of each main path: set to 0 just before it, read just after
     counters = {
         "line_opacity": (lk.accumulate_line_opacity_cuda, "launches"),
         "line_opacity_range": (lk.accumulate_line_opacity_cuda, "range_launches"),
         "formal_solution": (solver.raytrace_cuda, "launches"),
         "formal_solution_inward": (solver.raytrace_cuda, "inward_launches"),
+        "line_opacity_grad": (lk.accumulate_line_opacity_grad_cuda, "launches"),
+        "formal_solution_grad": (solver.raytrace_grad_cuda, "launches"),
+        "formal_solution_grad_inward": (solver.raytrace_grad_cuda, "inward_launches"),
     }
 
     def reset_counts():
@@ -703,6 +962,10 @@ def main():
                     bound_ms, bound_by = trace_bound(1, *a.shape, len(gplan.weights), 4, True)
                     log(f"kernel 2 inward f32 giant: kernel {ms:.3f} ms, "
                         f"plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+                entry = check_trace_grad(f"giant {label}", a, s, r, w, corr, True,
+                                         label == "giant")
+                if entry:
+                    report["formal_solution_grad_inward"] = entry
                 del fk, ik, fp, ip
         del inputs, total, source
         report["formal_solution_inward"] = {
@@ -1438,6 +1701,299 @@ def main():
             failures.append(f"CLI against run_stardis rel err {rel_c:.3e}")
     except Exception as exc:  # noqa: BLE001
         failures.append(f"grid and CLI phase: {exc!r}")
+    # --- 13. the gradient slice: Sim100AA fitted by Adam on the card -----------
+    try:
+        from stardis_tpu_torch.postprocessing import (
+            instrumental_broadening_torch,
+            rotation_broadening_torch,
+        )
+
+        vel_pix = float(SIM100AA_LAMBDA[2] / lams.mean() * 299792.458)  # km/s per pixel
+
+        def fit_model(fplan, dtype, plain=False):
+            """spectrum(params) -> (mean-normalised broadened surface spectrum,
+            the stage tensors whose gradients Kernels 1b and 2b write)."""
+            consts = device_constants(fplan, dtype, dev)
+            temps0 = torch.as_tensor(fplan.temperatures, device=dev).to(dtype)
+            n_elem0 = torch.as_tensor(fplan.n_elem, device=dev).to(dtype)
+
+            def spectrum(params):
+                scale, v_rot, sigma = params[0], params[1], params[2]
+                state, lq = stage_plasma_and_lines(fplan, temps0 * scale, n_elem0 / scale,
+                                                   consts)
+                # stage_spectrum's own two calls, keeping the batch's total
+                # opacity (Kernel 2b's input) for the determinism check
+                lines = prepare_lines(fplan, [state], [lq], consts, plain=plain)
+                f_nu, total, _, _ = spectrum_batch(
+                    fplan, [state], lines, consts,
+                    photospheric_correction=fplan.photospheric_correction, plain=plain)
+                surface = f_nu[0, -1]
+                out = rotation_broadening_torch(vel_pix, surface, v_rot, half_width_pix=FIT_HALF)
+                out = instrumental_broadening_torch(out, sigma, radius_pix=FIT_RADIUS)
+                return out / out.mean(), (*lq["atomic"], total, surface,
+                                          state.electron_densities, state.partition_function,
+                                          state.ion_number_density,
+                                          state.level_number_density, state.t)
+
+            return spectrum
+
+        def fit_loss(spectrum, observed, params):
+            model, inner = spectrum(params)
+            return torch.mean((model - observed) ** 2), inner
+
+        spectrum = fit_model(plan, torch.float32)
+        with torch.no_grad():
+            observed = spectrum(torch.tensor(FIT_TRUE, device=dev))[0]
+
+        def value_and_grad(params, inner=False):
+            p = params.detach().clone().requires_grad_()
+            loss, stage = fit_loss(spectrum, observed, p)
+            grads = torch.autograd.grad(loss, [p, *stage] if inner else [p], allow_unused=True)
+            return loss.detach(), grads
+
+        start = torch.tensor(FIT_START, device=dev)
+        value_and_grad(start)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        p = start.clone()
+        pscale = torch.tensor(FIT_STEP_SCALE, device=dev)
+        m = v = torch.zeros(3, device=dev)
+        losses, t0 = [], time.perf_counter()
+        for i in range(FIT_STEPS):
+            loss, (g,) = value_and_grad(p)
+            losses.append(loss.item())
+            g = g * pscale
+            m = 0.9 * m + 0.1 * g
+            v = 0.999 * v + 0.001 * g * g
+            mhat, vhat = m / (1 - 0.9 ** (i + 1)), v / (1 - 0.999 ** (i + 1))
+            p = p - FIT_LR / (1.0 + 0.05 * i) * pscale * mhat / (torch.sqrt(vhat) + 1e-12)
+        with torch.no_grad():
+            losses.append(torch.mean((spectrum(p)[0] - observed) ** 2).item())
+        fit_wall = time.perf_counter() - t0
+        launches = path_launches["Sim100AA fit"] = read_counts()
+        log(f"fit: Sim100AA ({plan.line_data.n_lines} lines x 56 x {len(lams)} lambda x 20 theta, "
+            f"float32), {FIT_STEPS} Adam steps from {FIT_START} toward {FIT_TRUE}: losses "
+            + ", ".join(f"{x:.4e}" for x in losses) + f"; parameters "
+            + ", ".join(f"{x:.5f}" for x in p.tolist()) + f"; wall {fit_wall:.3f} s; "
+            f"launches {launches}")
+        if not (losses[-1] < losses[0] and all(np.isfinite(losses))):
+            failures.append(f"fit: the loss did not fall: {losses}")
+        # one forward per step and one for the final loss, one backward per step
+        expected = {"line_opacity": FIT_STEPS + 1, "formal_solution": FIT_STEPS + 1,
+                    "line_opacity_grad": FIT_STEPS, "formal_solution_grad": FIT_STEPS}
+        if any(launches[k] != v for k, v in expected.items()):
+            failures.append(f"fit: launches {launches}, expected {expected}")
+
+        # walls, backward kernels' device time and peak memory of one step
+        def step_walls():
+            q = start.clone().requires_grad_()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = fit_loss(spectrum, observed, q)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss.backward()
+            torch.cuda.synchronize()
+            return t1 - t0, time.perf_counter() - t1
+
+        walls = [step_walls() for _ in range(3)]
+        fwd, bwd = sorted(w[0] for w in walls)[1], sorted(w[1] for w in walls)[1]
+        peak, _ = peak_bytes(torch, step_walls)
+        dev_ms = kernel_device_ms(torch, step_walls, ("line_opacity_grad_kernel",
+                                                      "trace_grad_kernel", "grad_sum_kernel",
+                                                      "line_opacity_kernel", "trace_kernel"))
+        log(f"fit step (float32, median of 3): forward {fwd:.4f} s, backward {bwd:.4f} s, "
+            f"value and gradient {fwd + bwd:.4f} s; peak memory of a step {peak / 1e9:.3f} GB; "
+            "device ms in one step: " + ", ".join(f"{k} {v:.3f}" for k, v in dev_ms.items()))
+
+        # two float32 gradient runs: Kernels 1b and 2b must be bit-equal.  The
+        # gradients of the stage tensors locate a difference: the surface
+        # F_nu's is post-processing's backward, the line quantities' and the
+        # total opacity's are Kernels 1b and 2b's outputs, the plasma state's
+        # fields what stage 1's line and continuum backward hand to
+        # solve_lte, T's what solve_lte's backward adds
+        names = ("params", "alpha (Kernel 1b)", "gamma (Kernel 1b)", "doppler (Kernel 1b)",
+                 "total opacity (Kernel 2b)", "surface F_nu (post-processing)", "n_e",
+                 "partition functions", "ion densities", "level densities", "T")
+
+        def run_diffs():
+            runs = [value_and_grad(start, inner=True)[1] for _ in range(2)]
+            return {n: (a - b).abs().max().item()
+                    for n, a, b in zip(names, *runs) if a is not None}
+
+        diffs = run_diffs()
+        log("two float32 gradient runs, max |difference|: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items()))
+        if any(v != 0 for k, v in diffs.items() if "Kernel" in k):
+            failures.append(f"fit: Kernel 1b / 2b gradients differ run to run: {diffs}")
+        if diffs["params"] != 0:
+            # torch's deterministic mode swaps in the deterministic versions
+            # of the ops that have one (and raises on one that has none)
+            torch.use_deterministic_algorithms(True)
+            try:
+                det = run_diffs()
+                log("the same under torch.use_deterministic_algorithms(True): "
+                    + ", ".join(f"{k} {v:.3e}" for k, v in det.items()))
+            except RuntimeError as exc:
+                log(f"torch.use_deterministic_algorithms(True) stops the gradient: {exc}")
+            finally:
+                torch.use_deterministic_algorithms(False)
+
+        # float64 on the card: central differences at full width, and the
+        # all-plain path's gradient at N_LINES_PLAIN_CHECK lines
+        spec64 = fit_model(plan, torch.float64)
+        start64 = start.double()
+        obs64 = spec64(torch.tensor(FIT_TRUE, device=dev, dtype=torch.float64))[0].detach()
+        p64 = start64.clone().requires_grad_()
+        (g64,) = torch.autograd.grad(fit_loss(spec64, obs64, p64)[0], p64)
+        fd = []
+        with torch.no_grad():
+            for i, h in enumerate(FIT_FD_STEPS):
+                e = torch.zeros(3, device=dev, dtype=torch.float64)
+                e[i] = h
+                fd.append((fit_loss(spec64, obs64, start64 + e)[0]
+                           - fit_loss(spec64, obs64, start64 - e)[0]).item() / (2 * h))
+        fd_rel = [abs(a - b) / abs(b) for a, b in zip(g64.tolist(), fd)]
+        g32 = value_and_grad(start)[1][0].double()
+        log(f"fit gradient float64 (full width): " + ", ".join(f"{x:.6e}" for x in g64.tolist())
+            + "; central differences " + ", ".join(f"{x:.6e}" for x in fd)
+            + f"; rel err {', '.join(f'{x:.2e}' for x in fd_rel)} (bound 5e-3); the float32 "
+            f"gradient against it: rel diff "
+            + ", ".join(f"{x:.2e}" for x in ((g32 - g64).abs() / g64.abs()).tolist()))
+        if not max(fd_rel) <= 5e-3:
+            failures.append(f"fit gradient vs finite differences rel err {fd_rel}")
+        plan_small = sim100aa_plan(N_LINES_PLAIN_CHECK)
+        grads = []
+        for plain in (False, True):
+            spec_s = fit_model(plan_small, torch.float64, plain=plain)
+            obs_s = spec_s(torch.tensor(FIT_TRUE, device=dev, dtype=torch.float64))[0].detach()
+            q = start64.clone().requires_grad_()
+            grads.append(torch.autograd.grad(fit_loss(spec_s, obs_s, q)[0], q)[0])
+        plain_rel = ((grads[0] - grads[1]).abs() / grads[1].abs()).max().item()
+        log(f"fit gradient float64 at {N_LINES_PLAIN_CHECK} lines: kernel path "
+            + ", ".join(f"{x:.10e}" for x in grads[0].tolist()) + ", all-plain path "
+            + ", ".join(f"{x:.10e}" for x in grads[1].tolist())
+            + f"; max rel err {plain_rel:.3e} (bound 1e-9)")
+        if not plain_rel <= 1e-9:
+            failures.append(f"fit gradient kernel vs all-plain rel err {plain_rel:.3e}")
+        del spectrum, spec64, spec_s, observed, obs64, obs_s
+    except Exception as exc:  # noqa: BLE001
+        failures.append(f"fit phase: {exc!r}")
+
+    # --- 13b. molecules under autograd on the card: the spherical giant --------
+    try:
+        for coupled in (False, True):
+            mplan = giant_plan(N_LINES_PLAIN_CHECK, GIANT_MOL_LINES_PLAIN_CHECK, coupled=coupled)
+            grads = {}
+            for dtype in (torch.float32, torch.float64):
+                consts = device_constants(mplan, dtype, dev)
+                n_elem = torch.as_tensor(mplan.n_elem, device=dev).to(dtype)
+
+                def flux_sum(temps):
+                    state, lq = stage_plasma_and_lines(mplan, temps, n_elem, consts)
+                    return stage_spectrum(mplan, state, lq, consts)[0][-1].sum()
+
+                t = torch.as_tensor(mplan.temperatures, device=dev).to(dtype).requires_grad_()
+                (grads[dtype],) = torch.autograd.grad(flux_sum(t), t)
+            g64, g32 = grads[torch.float64], grads[torch.float32].double()
+            # the most sensitive depth, as tests/test_differentiability.py does
+            i = int(g64.abs().argmax())
+            with torch.no_grad():
+                tp = torch.as_tensor(mplan.temperatures, device=dev).clone()
+                tm = tp.clone()
+                tp[i] += 0.5
+                tm[i] -= 0.5
+                fd = ((flux_sum(tp) - flux_sum(tm)) / 1.0).item()
+            rel = abs(g64[i].item() - fd) / abs(fd)
+            f32_rel = ((g32 - g64).abs().max() / g64.abs().max()).item()
+            label = "coupled" if coupled else "pairwise"
+            log(f"giant {label} molecules ({mplan.line_data.n_lines} + "
+                f"{mplan.molecule_line_data.n_lines} lines, 3 file tables): float64 d sum "
+                f"F_nu(surface) / dT[{i}] {g64[i].item():.6e}, central difference {fd:.6e}, rel "
+                f"err {rel:.2e} (bound 5e-3); float32 gradient finite "
+                f"{bool(torch.isfinite(g32).all())}, against float64 {f32_rel:.2e} of the largest")
+            if not (rel <= 5e-3 and torch.isfinite(g32).all() and torch.isfinite(g64).all()):
+                failures.append(f"giant {label} molecules gradient: rel err {rel:.2e}")
+    except Exception as exc:  # noqa: BLE001
+        failures.append(f"molecule gradient phase: {exc!r}")
+
+    # --- 13c. a batched run's gradient: the spherical giants of phase 8 -------
+    try:
+        temps_b = torch.as_tensor(g_batch.temperatures, device=dev).float().requires_grad_()
+        reset_counts()
+        f_b = run_batch(gb_plan, dataclasses.replace(g_batch, temperatures=temps_b), device=dev,
+                        dtype=torch.float32)
+        f_b[:, -1].sum().backward()
+        torch.cuda.synchronize()
+        launches = path_launches["giant batch gradient"] = read_counts()
+        g_b = temps_b.grad
+        log(f"giant batch gradient ({g_b.shape[0]} spherical members, 3 file tables): "
+            f"d sum F_nu(surface) / dT finite {bool(torch.isfinite(g_b).all())}, max |.| per "
+            "member " + ", ".join(f"{x:.4e}" for x in g_b.abs().amax(dim=1).tolist())
+            + f"; launches {launches}")
+        if not (torch.isfinite(g_b).all() and (g_b.abs().amax(dim=1) > 0).all()
+                and launches["line_opacity_grad"] == 1
+                and launches["formal_solution_grad_inward"] == 1):
+            failures.append(f"giant batch gradient: launches {launches}")
+
+        # each member's row against the all-plain path at the same [4, D, N]:
+        # the kernels' per-model offsets are exercised only by a batch
+        def batch_grad(dtype, plain):
+            t = torch.as_tensor(g_batch.temperatures, device=dev).to(dtype).requires_grad_()
+            f = run_batch(gb_plan, dataclasses.replace(g_batch, temperatures=t), device=dev,
+                          dtype=dtype, plain=plain)
+            return torch.autograd.grad(f[:, -1].sum(), t)[0]
+
+        g_plain = batch_grad(torch.float64, plain=True)
+        scale = g_plain.abs().amax(dim=1)
+        err64 = ((batch_grad(torch.float64, plain=False) - g_plain).abs().amax(dim=1) / scale)
+        err32 = (g_b.double() - g_plain).abs().amax(dim=1) / scale
+        log("giant batch gradient per member against the all-plain path (float64), max "
+            "|diff| / member max: float64 kernel path "
+            + ", ".join(f"{x:.3e}" for x in err64.tolist()) + " (bound 1e-9); float32 main path "
+            + ", ".join(f"{x:.3e}" for x in err32.tolist())
+            + " (bound 1e-5; 13b's giant read 4e-7 to 6e-7 in float32)")
+        if not ((err64 <= 1e-9).all() and (err32 <= 1e-5).all()):
+            failures.append("giant batch gradient member vs all-plain: float64 "
+                            f"{err64.tolist()}, float32 {err32.tolist()}")
+    except Exception as exc:  # noqa: BLE001
+        failures.append(f"batch gradient phase: {exc!r}")
+
+    # --- 13d. peak memory of a differentiated segmented run --------------------
+    # util/memory.py models forward-only runs; under autograd every range's
+    # saved tensors live until the backward
+    try:
+        n_points = MEMORY_POINTS[1]
+        cfg = sim100aa_config(model_path)
+        cfg["result_options"] = {"return_radiation_field": False}
+        dplan = mem_plan(cfg, mem_adata, wide_grid(n_points))
+        d_consts = device_constants(dplan, torch.float32, dev)
+        d_n_elem = torch.as_tensor(dplan.n_elem, device=dev).float()
+
+        def segmented_run(k, grad):
+            t = torch.as_tensor(dplan.temperatures, device=dev).float().requires_grad_(grad)
+            with torch.set_grad_enabled(grad):
+                state, lq = stage_plasma_and_lines(dplan, t, d_n_elem, d_consts)
+                f = segmented_spectrum(dplan, state, lq, k, d_consts)
+                if grad:
+                    f[-1].sum().backward()
+            finite = bool(torch.isfinite(f).all())
+            return finite and (not grad or bool(torch.isfinite(t.grad).all()))
+
+        readings = {}
+        for k in (1, 4):
+            for grad in (False, True):
+                readings[k, grad] = peak_bytes(torch, lambda: segmented_run(k, grad))
+        log(f"segmented run peak memory ({n_points} points x {dplan.line_data.n_lines} lines, "
+            "float32), forward only / forward and backward: "
+            + "; ".join(f"K = {k}: {readings[k, False][0] / 1e9:.4f} / "
+                        f"{readings[k, True][0] / 1e9:.4f} GB (memory model "
+                        f"{model_estimate(dplan, k) / 1e9:.4f} GB)" for k in (1, 4)))
+        if not all(ok for _, ok in readings.values()):
+            failures.append("differentiated segmented run: not finite")
+        del dplan, d_consts
+    except Exception as exc:  # noqa: BLE001
+        failures.append(f"differentiated segmented memory phase: {exc!r}")
     tmp.cleanup()
 
     if failures:
@@ -1459,6 +2015,12 @@ def main():
                             "stardis_tpu/radiation_field/solver.py:186"),
         "formal_solution_inward": ("stardis_tpu_torch/csrc/formal_solution.cu",
                                    "stardis_tpu/radiation_field/solver.py:98"),
+        "line_opacity_grad": ("stardis_tpu_torch/csrc/line_opacity_grad.cu",
+                              "stardis_tpu/opacities/line_kernel.py:1049"),
+        "formal_solution_grad": ("stardis_tpu_torch/csrc/formal_solution_grad.cu",
+                                 "stardis_tpu/radiation_field/solver.py:186"),
+        "formal_solution_grad_inward": ("stardis_tpu_torch/csrc/formal_solution_grad.cu",
+                                        "stardis_tpu/radiation_field/solver.py:98"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -24,12 +24,17 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-#: flags of one kernel on top of NVCC_FLAGS.  The formal solution is built
-#: without FMA contraction, so that each of its products rounds as in the
-#: plain version: its weights w1 = w0 - tau e and w2 = 2 w1 - tau^2 e
-#: cancel, and the reference's gap-0 wrap divides by the surface tau, so a
-#: fused product there moves I_nu far beyond one rounding.
-KERNEL_FLAGS = {"formal_solution": ("-fmad=false",)}
+#: flags of one kernel on top of NVCC_FLAGS.  The formal solution and its
+#: backward are built without FMA contraction, so that each of their
+#: products rounds as in the plain version: the weights w1 = w0 - tau e and
+#: w2 = 2 w1 - tau^2 e cancel, and the reference's gap-0 wrap divides by
+#: the surface tau, so a fused product there moves I_nu far beyond one
+#: rounding; the backward recomputes the inward sweep and must round it as
+#: the forward did.
+KERNEL_FLAGS = {"formal_solution": ("-fmad=false",),
+                "formal_solution_grad": ("-fmad=false",)}
+#: every kernel of csrc/, in the order chip_smoke.py builds them
+KERNELS = ("line_opacity", "formal_solution", "line_opacity_grad", "formal_solution_grad")
 
 _LIBS: dict = {}
 #: compiler report (ptxas registers / spills) of each kernel built by this

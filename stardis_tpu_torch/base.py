@@ -16,6 +16,7 @@ from .io.config import load_config
 from .io.marcs import read_marcs_model
 from .pipeline import (
     build_simulation_plan,
+    host_array,
     not_ported,
     resolve_device,
     run_simulation,
@@ -156,7 +157,8 @@ class STARDISOutput:
         self.nus = u.Quantity(nus_hz, u.Hz)
         self.lambdas = self.nus.to(u.AA, u.spectral())
 
-        f_nu = stellar_radiation_field.F_nu[-1].detach().to("cpu", torch.float64).numpy()
+        f_nu = host_array(stellar_radiation_field.F_nu[-1].to("cpu", torch.float64),
+                          "STARDISOutput")
         self.spectrum_nu = u.Quantity(f_nu, u.erg / u.s / u.cm**2 / u.Hz)
         self.spectrum_lambda = u.Quantity(
             f_nu * nus_hz / np.asarray(self.lambdas), u.erg / u.s / u.cm**2 / u.AA

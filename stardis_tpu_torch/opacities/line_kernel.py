@@ -39,7 +39,9 @@ from .voigt import (
     PI,
     SQRT_PI,
     faddeeva_real,
+    faddeeva_real_grad,
     faddeeva_real_region1,
+    faddeeva_real_region1_grad,
 )
 
 MIN_WINDOW_PIXELS = 10
@@ -182,18 +184,45 @@ def line_opacity_range(prepared, p_begin=0, n_out=None):
     """The sum over pixels [p_begin, p_begin + n_out) of the global grid
     (default all of it) from ``prepare_line_opacity``'s inputs: Kernel 1 on
     a CUDA device, the plain version on the CPU.  Returns [B, D, n_out],
-    or [D, n_out] for a single model."""
+    or [D, n_out] for a single model.
+
+    Differentiable in alpha, gamma and doppler: the backward is Kernel 1b
+    (csrc/line_opacity_grad.cu) on a CUDA device and
+    ``accumulate_line_opacity_plain_backward`` on the CPU, over the same
+    pixel range.  The grid, the centres and the integer windows carry no
+    gradient (the windows are piecewise constant, as in the JAX package)."""
     n_nu = prepared.grid.shape[0]
     n_out = n_nu - p_begin if n_out is None else n_out
     if not (0 <= p_begin and n_out >= 0 and p_begin + n_out <= n_nu):
         raise ValueError(f"pixel range [{p_begin}, {p_begin + n_out}) outside [0, {n_nu})")
     q = prepared
-    if q.iw_max is None:
-        out = accumulate_line_opacity_plain(q.grid, q.line_nu, q.centers, q.alpha, q.gamma,
-                                            q.doppler, q.iw, p_begin=p_begin, n_out=n_out)
-    else:
-        out = accumulate_line_opacity_cuda(q, p_begin, n_out)
+    out = _LineOpacity.apply(q.alpha, q.gamma, q.doppler, q, p_begin, n_out)
     return out[0] if q.single else out
+
+
+class _LineOpacity(torch.autograd.Function):
+    """Kernel 1 (or its plain version) forward, Kernel 1b (or its plain
+    version) backward, on ``prepare_line_opacity``'s layout."""
+
+    @staticmethod
+    def forward(ctx, alpha, gamma, doppler, prepared, p_begin, n_out):
+        q = prepared
+        ctx.prepared, ctx.p_begin, ctx.n_out = q, p_begin, n_out
+        if q.iw_max is None:
+            return accumulate_line_opacity_plain(q.grid, q.line_nu, q.centers, alpha, gamma,
+                                                 doppler, q.iw, p_begin=p_begin, n_out=n_out)
+        return accumulate_line_opacity_cuda(q, p_begin, n_out)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, p_begin, n_out = ctx.prepared, ctx.p_begin, ctx.n_out
+        if q.iw_max is None:
+            grads = accumulate_line_opacity_plain_backward(
+                grad, q.grid, q.line_nu, q.centers, q.alpha, q.gamma, q.doppler, q.iw,
+                p_begin=p_begin, n_out=n_out)
+        else:
+            grads = accumulate_line_opacity_grad_cuda(q, grad, p_begin, n_out)
+        return (*grads, None, None, None)
 
 
 def accumulate_line_opacity_plain(grid, line_nu, centers, alpha, gamma,
@@ -215,18 +244,35 @@ def accumulate_line_opacity_plain(grid, line_nu, centers, alpha, gamma,
         ])
     n_nu = grid.shape[0]
     n_out = n_nu - p_begin if n_out is None else n_out
-    p_end = p_begin + n_out
-    n_lines, n_depth = alpha.shape
+    n_depth = alpha.shape[1]
     out = torch.zeros((n_depth, n_out), dtype=alpha.dtype, device=alpha.device)
+    for sl, p0, p1, li, di, pi, dnu in _window_pairs(grid, line_nu, centers, iw, budget,
+                                                     p_begin, p_begin + n_out):
+        phi = _voigt_in_window(dnu, doppler[sl][li, di], gamma[sl][li, di])
+        block = torch.zeros((n_depth, p1 - p0), dtype=out.dtype, device=out.device)
+        block.index_put_((di, pi), phi * alpha[sl][li, di], accumulate=True)
+        out[:, p0 - p_begin:p1 - p_begin] += block
+    return out
+
+
+def _window_pairs(grid, line_nu, centers, iw, budget, p_begin, p_end):
+    """The plain versions' chunks: lines cut into chunks whose windows'
+    pixel span fits ``budget`` ([C, D, span] elements, span over the whole
+    grid, so the cut does not depend on the range), and each chunk's
+    in-window (line, depth, pixel) pairs inside [p_begin, p_end).  Yields
+    (line slice, p0, p1, li, di, pi, dnu): li relative to the slice, pi to
+    p0, and dnu = grid[p] - line_nu[l] per pair."""
+    n_lines, n_depth = iw.shape
     if n_lines == 0:
-        return out
+        return
+    n_nu = grid.shape[0]
     if budget is None:
-        budget = 1 << 24 if alpha.is_cuda else 1 << 20
-    centers = centers.to(device=alpha.device, dtype=torch.int64)
+        budget = 1 << 24 if grid.is_cuda else 1 << 20
+    centers = centers.to(device=grid.device, dtype=torch.int64)
     reach = iw.amax(dim=1).to(torch.int64)
     lo = torch.clamp(centers - reach, 0, n_nu).cpu().numpy()
     hi = torch.clamp(centers + reach, 0, n_nu).cpu().numpy()
-    pix_all = torch.arange(n_nu, device=alpha.device)
+    pix_all = torch.arange(n_nu, device=grid.device)
 
     start = 0
     while start < n_lines:
@@ -242,19 +288,12 @@ def accumulate_line_opacity_plain(grid, line_nu, centers, alpha, gamma,
         p0, p1 = max(p0, p_begin), min(p1, p_end)
         if p1 <= p0:
             continue
-        pix = pix_all[p0:p1]
-        off = pix[None, :] - centers[sl, None]  # [C, S]
+        off = pix_all[p0:p1][None, :] - centers[sl, None]  # [C, S]
         dnu = grid[p0:p1][None, :] - line_nu[sl, None]  # [C, S]
         half = iw[sl].to(torch.int64)[:, :, None]  # [C, D, 1]
         within = (off[:, None, :] >= -half) & (off[:, None, :] < half)
         li, di, pi = within.nonzero(as_tuple=True)
-        phi = _voigt_in_window(
-            dnu[li, pi], doppler[sl][li, di], gamma[sl][li, di]
-        )
-        block = torch.zeros((n_depth, p1 - p0), dtype=out.dtype, device=out.device)
-        block.index_put_((di, pi), phi * alpha[sl][li, di], accumulate=True)
-        out[:, p0 - p_begin:p1 - p_begin] += block
-    return out
+        yield sl, p0, p1, li, di, pi, dnu[li, pi]
 
 
 def _voigt_in_window(delta_nu, doppler_width, gamma):
@@ -267,6 +306,69 @@ def _voigt_in_window(delta_nu, doppler_width, gamma):
     core = torch.abs(x) + y <= 15.0
     w[core] = faddeeva_real(x[core], y[core])
     return w / (SQRT_PI * doppler_width)
+
+
+def _faddeeva_grad_in_window(x, y):
+    """(Re w, d Re w/dx, d Re w/dy) on in-window pairs, with the forward's
+    region split: region I everywhere, the full chain where |x| + y <= 15."""
+    re, wx, wy = faddeeva_real_region1_grad(x, y)
+    core = torch.abs(x) + y <= 15.0
+    re[core], wx[core], wy[core] = faddeeva_real_grad(x[core], y[core])
+    return re, wx, wy
+
+
+def _line_grad_finish(s_w, s_y, s_x, alpha, gamma, doppler):
+    """The three gradients of one (line, depth) pair from its window sums
+    S_w = sum g Re w, S_y = sum g dRe w/dy, S_x = sum g x dRe w/dx
+    (g the incoming gradient per pixel), with phi = Re w / (sqrt(pi) D),
+    x = dnu / D, y = gamma / (sqrt(pi) pi) / D:
+
+        dL/dalpha = sum g phi             = S_w / (sqrt(pi) D)
+        dL/dgamma = alpha sum g dphi/dgamma = alpha S_y / (sqrt(pi) pi D) / (sqrt(pi) D)
+        dL/dD     = alpha sum g dphi/dD   = -alpha (S_w + S_x + y S_y) / (sqrt(pi) D) / D
+
+    Kernel 1b finishes each pair with these operations in this order."""
+    y = gamma / (SQRT_PI * PI) / doppler
+    inv = 1.0 / (SQRT_PI * doppler)
+    return (s_w * inv,
+            alpha * s_y / (SQRT_PI * PI) / doppler * inv,
+            -alpha * (s_w + s_x + y * s_y) * inv / doppler)
+
+
+def accumulate_line_opacity_plain_backward(grad, grid, line_nu, centers, alpha, gamma,
+                                           doppler, iw, budget=None, p_begin=0, n_out=None):
+    """Plain torch version of Kernel 1b: the gradients of
+    ``accumulate_line_opacity_plain`` (same arguments) with respect to
+    alpha, gamma and doppler, given ``grad`` = dL/d(output) [B, D, n_out]
+    (or [D, n_out] for [L, D] inputs).  Returns three tensors shaped as
+    alpha.
+
+    An explicit chunked sum, not autograd of the forward, which would keep
+    every in-window pair of every chunk alive: each chunk of lines (cut as
+    the forward cuts them) evaluates Re w and its derivatives on its
+    in-window pairs of the range and adds g Re w, g dRe w/dy and
+    g x dRe w/dx into per-(line, depth) sums; ``_line_grad_finish`` turns
+    them into the gradients."""
+    if alpha.ndim == 3:
+        parts = [accumulate_line_opacity_plain_backward(
+            grad[b], grid, line_nu, centers, alpha[b], gamma[b], doppler[b], iw[b], budget,
+            p_begin, n_out) for b in range(alpha.shape[0])]
+        return tuple(torch.stack(p) for p in zip(*parts))
+    n_nu = grid.shape[0]
+    n_out = n_nu - p_begin if n_out is None else n_out
+    n_lines, n_depth = alpha.shape
+    sums = torch.zeros((3, n_lines * n_depth), dtype=alpha.dtype, device=alpha.device)
+    for sl, p0, _p1, li, di, pi, dnu in _window_pairs(grid, line_nu, centers, iw, budget,
+                                                      p_begin, p_begin + n_out):
+        dop = doppler[sl][li, di]
+        x = dnu / dop
+        y = gamma[sl][li, di] / (SQRT_PI * PI) / dop
+        re, wx, wy = _faddeeva_grad_in_window(x, y)
+        g = grad[di, pi + (p0 - p_begin)]
+        flat = (li + sl.start) * n_depth + di
+        sums.index_add_(1, flat, torch.stack([g * re, g * wy, g * (x * wx)]))
+    s_w, s_y, s_x = (s.reshape(n_lines, n_depth) for s in sums)
+    return _line_grad_finish(s_w, s_y, s_x, alpha, gamma, doppler)
 
 
 _LINE_ARGS = (
@@ -307,3 +409,39 @@ def accumulate_line_opacity_cuda(prepared, p_begin, n_out):
 #: ranges of a segmented run)
 accumulate_line_opacity_cuda.launches = 0
 accumulate_line_opacity_cuda.range_launches = 0
+
+
+_LINE_GRAD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def accumulate_line_opacity_grad_cuda(prepared, grad, p_begin, n_out):
+    """Kernel 1b (csrc/line_opacity_grad.cu): the gradients of Kernel 1's
+    range [p_begin, p_begin + n_out) with respect to alpha, gamma and
+    doppler, given grad [B, D, n_out]; three [B, D, L] tensors in the
+    prepared layout, each element written once."""
+    q = prepared
+    n_models, n_depth, n_lines = q.alpha.shape
+    dtype = q.alpha.dtype
+    if grad.shape != (n_models, n_depth, n_out):
+        raise ValueError(f"line_opacity_grad kernel: grad must be {(n_models, n_depth, n_out)}")
+    if grad.dtype != dtype or grad.device != q.grid.device:
+        raise TypeError("line_opacity_grad kernel: grad must match the line arrays")
+    grad = grad.contiguous()
+    outs = [torch.empty_like(q.alpha) for _ in range(3)]
+    if n_lines == 0 or n_models * n_depth == 0:
+        return outs
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    fn = _cuda.bind("line_opacity_grad", f"line_opacity_grad_{suffix}", _LINE_GRAD_ARGS)
+    p = _cuda.ptr
+    status = fn(
+        p(q.grid), p(q.line_nu), p(q.centers), p(q.alpha), p(q.gamma), p(q.doppler),
+        p(q.iw), p(grad), *(p(o) for o in outs), n_models, n_lines, n_depth,
+        p_begin, n_out, q.grid.shape[0], _cuda.stream_ptr(q.grid.device),
+    )
+    accumulate_line_opacity_grad_cuda.launches += 1
+    _cuda.check("line_opacity_grad", status)
+    return outs
+
+
+#: launches of Kernel 1b (whole grid and ranges alike)
+accumulate_line_opacity_grad_cuda.launches = 0

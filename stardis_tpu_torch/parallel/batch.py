@@ -39,6 +39,8 @@ from ..radiation_field.solver import gauss_legendre_thetas
 
 @dataclasses.dataclass
 class BatchInputs:
+    # temperatures and n_elem may also be tensors on the run's device, with
+    # requires_grad for gradients of run_batch's F_nu with respect to them
     temperatures: np.ndarray  # [B, D]
     n_elem: np.ndarray  # [B, E, D]
     ray_distances: np.ndarray  # [B, G, T]
@@ -119,6 +121,10 @@ def run_batch(plan: SimulationPlan, batch: BatchInputs, mesh=None, device="cuda"
     device, dtype : as run_simulation (the card in float32 by default; a
         CUDA device without a GPU raises); ``plain`` runs the kernels' plain
         torch versions.  ``timings`` receives the wall time of each stage.
+    F_nu carries gradients to ``batch.temperatures`` / ``batch.n_elem``
+    when they are tensors that require grad (Kernels 1b and 2b take the
+    whole batch in one launch each); the file-table cross-sections are host
+    arrays and, as in the JAX package, carry none.
     mesh : not ported (multi-GPU, ROADMAP Queue 1).
 
     A plan with molecules raises: the JAX package's run_batch evaluates

@@ -25,7 +25,7 @@ import time
 import numpy as np
 import torch
 
-from ..pipeline import _stage, prepare_lines, spectrum_batch
+from ..pipeline import _stage, host_array, prepare_lines, spectrum_batch
 
 
 def segment_ranges(n_nu, n_segments):
@@ -87,7 +87,16 @@ def segmented_spectrum(plan, state, line_quants, n_segments, consts, collect_opa
     not from a continuum of the whole grid.
 
     F_nu, and I_nus when the plan tracks them, are written into one
-    preallocated device tensor each.  Returns F_nu [D, N]; (F_nu, I_nus)
+    preallocated device tensor each; without ``collect_opacities`` they
+    carry gradients to stage 1's tensors (each range's Kernels 1b and 2b
+    sum over that range only).  With it, a stage-1 tensor that requires
+    grad raises: the host copies carry none.  Under autograd the ranges do
+    not bound device memory: each range's saved tensors (Kernel 2's
+    [1, D, n, T] intensity buffer, its opacities and source) live until the
+    backward, which adds Kernel 2b's two [1, D, n, T] partial buffers per
+    range (and a [1, G, n, T] scratch for the inward sweep);
+    ``util.memory`` and ``nu_segments="auto"`` model forward-only runs.
+    Returns F_nu [D, N]; (F_nu, I_nus)
     when the plan tracks I_nu; (F_nu, I_nus or None, opacities, total)
     with ``collect_opacities``.
     """
@@ -122,7 +131,8 @@ def segmented_spectrum(plan, state, line_quants, n_segments, consts, collect_opa
         walls.mark()
         if collect_opacities:
             keys = [k for k in opac_s if "gammas" not in k and "doppler" not in k]
-            host = torch.stack([opac_s[k][0] for k in keys] + [total_s[0]]).cpu().numpy()
+            host = host_array(torch.stack([opac_s[k][0] for k in keys] + [total_s[0]]),
+                              "segmented_spectrum(collect_opacities=True)")
             if total is None:
                 opacities = {k: np.empty((n_depth, n_nu), dtype=host.dtype) for k in keys}
                 total = np.empty((n_depth, n_nu), dtype=host.dtype)
@@ -135,8 +145,9 @@ def segmented_spectrum(plan, state, line_quants, n_segments, consts, collect_opa
 
     if collect_opacities:
         for label, _prepared, gamma, doppler in lines:
-            opacities[label + "_gammas"] = gamma[0].cpu().numpy()
-            opacities[label + "_doppler_widths"] = doppler[0].cpu().numpy()
+            what = "segmented_spectrum(collect_opacities=True)"
+            opacities[label + "_gammas"] = host_array(gamma[0], what)
+            opacities[label + "_doppler_widths"] = host_array(doppler[0], what)
         return f_nu, i_nus, opacities, total
     if track:
         return f_nu, i_nus

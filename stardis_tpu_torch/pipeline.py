@@ -359,6 +359,19 @@ def _full_float32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = previous
 
 
+def host_array(tensor, what):
+    """``tensor`` as a host NumPy array.  A tensor that carries a gradient
+    raises instead: the copy would silently cut the autograd graph."""
+    if tensor.requires_grad:
+        raise RuntimeError(
+            f"{what} copies results to the host as NumPy arrays, which carry no "
+            "gradient; under autograd call the device stages instead "
+            "(stage_plasma_and_lines, stage_spectrum, spectrum_batch, run_batch, "
+            "or segmented_spectrum without collect_opacities)"
+        )
+    return tensor.cpu().numpy()
+
+
 def _tensor(x, like):
     """Host float64 array -> tensor of ``like``'s dtype and device."""
     return torch.as_tensor(np.asarray(x, dtype=np.float64), device=like.device).to(like.dtype)

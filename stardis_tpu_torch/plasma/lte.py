@@ -237,12 +237,15 @@ def solve_lte(temperatures, elemental_number_density, dt: DevicePlasmaTables):
         n_h_neutral = torch.zeros_like(t)
         n_h_plus = torch.zeros_like(t)
 
-    lam3 = (THERMAL_DE_BROGLIE_CONST / (M_E_CGS * t)) ** 1.5
+    # constants folded in f64 Python before the division by t: the
+    # unfolded m t (~1e-24 g K) would make the backward's 1/(m t)^2
+    # overflow float32 (an inf, then a NaN gradient)
+    lam3 = (float(THERMAL_DE_BROGLIE_CONST / M_E_CGS) / t) ** 1.5
     h_minus = n_h_neutral * n_e * (lam3 / 4.0) * torch.exp(
         H_MINUS_CHI_EV * EV_TO_ERG * beta
     )
 
-    lam3_p = (2.0 * THERMAL_DE_BROGLIE_CONST / (M_P_CGS * t)) ** 1.5
+    lam3_p = (float(2.0 * THERMAL_DE_BROGLIE_CONST / M_P_CGS) / t) ** 1.5
     h2 = n_h_neutral**2 * lam3_p * torch.exp(
         H2_DISSOCIATION_ENERGY_EV * EV_TO_ERG * beta
     )

@@ -265,6 +265,24 @@ def raytrace_plain(alphas, source, ray_distances, weights, inward_rays=False,
     return _strip(single, f_nu, None)
 
 
+def raytrace_plain_backward(alphas, source, ray_distances, weights, g_flux, g_intensity=None,
+                            inward_rays=False, photospheric_correction=None):
+    """Plain version of Kernel 2b: (dL/dalphas, dL/dsource) from
+    torch.autograd.grad of ``raytrace_plain`` (shapes as ``raytrace``),
+    given g_flux = dL/dF_nu and, optionally, g_intensity = dL/dI_nus
+    [B, D, N, T]; either may be None."""
+    with torch.enable_grad():
+        a = alphas.detach().requires_grad_()
+        s = source.detach().requires_grad_()
+        track = g_intensity is not None
+        f_nu, i_nus = raytrace_plain(a, s, ray_distances, weights, inward_rays,
+                                     photospheric_correction, track)
+        outs = [(f_nu, g_flux), (i_nus, g_intensity)]
+        outs = [(o, g) for o, g in outs if g is not None]
+        return torch.autograd.grad([o for o, _ in outs], (a, s), [g for _, g in outs],
+                                   allow_unused=True, materialize_grads=True)
+
+
 _TRACE_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
@@ -273,10 +291,29 @@ def raytrace_cuda(alphas, source, ray_distances, weights, inward_rays=False,
                   track_individual_intensities=False):
     """Kernel 2 (csrc/formal_solution.cu) on CUDA tensors [B, D, N] /
     [B, G, T]; raises on anything the kernel does not take.  Spherical
-    models (``inward_rays``) launch the kernel's inward-sweep variant."""
+    models (``inward_rays``) launch the kernel's inward-sweep variant.
+
+    Differentiable in alphas and source (and through F_nu and the tracked
+    I_nus): the backward is Kernel 2b (csrc/formal_solution_grad.cu),
+    which reads the forward's saved intensity buffer.  Ray distances,
+    weights and the corrections are constants of the plan."""
+    n_models = alphas.shape[0]
+    if any(t.requires_grad for t in (ray_distances, weights)) or (
+            torch.is_tensor(photospheric_correction)
+            and photospheric_correction.requires_grad):
+        raise ValueError("formal_solution kernel: only alphas and source are differentiable")
+    correction = _corrections(photospheric_correction, n_models, alphas).contiguous()
+    f_nu, intensity = _Raytrace.apply(alphas, source, ray_distances, weights, correction,
+                                      bool(inward_rays))
+    return f_nu, (intensity if track_individual_intensities else None)
+
+
+def _launch_trace(alphas, source, ray_distances, weights, correction, inward_rays):
+    """Kernel 2's launch on contiguous tensors: F_nu [B, D, N] and its
+    pass-1 intensity buffer [B, D, N, T] (the I_nus output when tracked)."""
     n_models, n_depth, n_nu = alphas.shape
     dtype = alphas.dtype
-    tensors = (alphas, source, ray_distances, weights)
+    tensors = (alphas, source, ray_distances, weights, correction)
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"formal_solution kernel takes float32/float64, not {dtype}")
     if any(t.dtype != dtype for t in tensors):
@@ -288,14 +325,8 @@ def raytrace_cuda(alphas, source, ray_distances, weights, inward_rays=False,
     n_theta = weights.shape[0]
     if ray_distances.shape != (n_models, n_depth - 1, n_theta):
         raise ValueError("formal_solution kernel: ray_distances must be [B, D - 1, T]")
-    correction = _corrections(photospheric_correction, n_models, alphas).contiguous()
     if correction.shape != (n_models,):
         raise ValueError("formal_solution kernel: one photospheric correction per model")
-    alphas = alphas.contiguous()
-    source = source.contiguous()
-    ray_distances = ray_distances.contiguous()
-    weights = weights.contiguous()
-    # pass-1 buffer; it is the I_nus output when tracked
     intensity = torch.empty((n_models, n_depth, n_nu, n_theta), dtype=dtype,
                             device=alphas.device)
     f_nu = torch.empty((n_models, n_depth, n_nu), dtype=dtype, device=alphas.device)
@@ -312,10 +343,92 @@ def raytrace_cuda(alphas, source, ray_distances, weights, inward_rays=False,
     else:
         raytrace_cuda.launches += 1
     _cuda.check("formal_solution", status)
-    return f_nu, (intensity if track_individual_intensities else None)
+    return f_nu, intensity
+
+
+class _Raytrace(torch.autograd.Function):
+    """Kernel 2 forward, Kernel 2b backward; saves the intensity buffer."""
+
+    @staticmethod
+    def forward(ctx, alphas, source, ray_distances, weights, correction, inward_rays):
+        alphas, source, ray_distances, weights = (
+            t.contiguous() for t in (alphas, source, ray_distances, weights))
+        f_nu, intensity = _launch_trace(alphas, source, ray_distances, weights, correction,
+                                        inward_rays)
+        ctx.save_for_backward(alphas, source, ray_distances, weights, correction, intensity)
+        ctx.inward_rays = inward_rays
+        ctx.set_materialize_grads(False)
+        return f_nu, intensity
+
+    @staticmethod
+    def backward(ctx, g_flux, g_intensity):
+        grads = raytrace_grad_cuda(*ctx.saved_tensors, g_flux, g_intensity, ctx.inward_rays)
+        return (*grads, None, None, None, None)
+
+
+_TRACE_GRAD_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def raytrace_grad_cuda(alphas, source, ray_distances, weights, correction, intensity,
+                       g_flux, g_intensity, inward_rays):
+    """Kernel 2b (csrc/formal_solution_grad.cu): (dL/dalphas, dL/dsource)
+    [B, D, N] from Kernel 2's inputs, its intensity buffer and the incoming
+    gradients of F_nu [B, D, N] and I_nus [B, D, N, T] (either may be
+    None), each output written once."""
+    n_models, n_depth, n_nu = alphas.shape
+    n_theta = weights.shape[0]
+    dtype = alphas.dtype
+    saved = (alphas, source, ray_distances, weights, correction, intensity)
+    if any(t.dtype != dtype or t.device != alphas.device or not t.is_contiguous()
+           for t in saved):
+        raise ValueError("formal_solution_grad kernel: inputs must be contiguous, of one "
+                         "dtype, on one CUDA device")
+    if (source.shape != alphas.shape or intensity.shape != (*alphas.shape, n_theta)
+            or ray_distances.shape != (n_models, n_depth - 1, n_theta)
+            or correction.shape != (n_models,)):
+        raise ValueError("formal_solution_grad kernel: shapes must be Kernel 2's")
+
+    def incoming(g, shape):
+        if g is None:
+            return None
+        if g.shape != shape or g.dtype != dtype or g.device != alphas.device:
+            raise ValueError(f"formal_solution_grad kernel: gradient must be {shape}, {dtype}")
+        return g.contiguous()
+
+    g_flux = incoming(g_flux, alphas.shape)
+    g_intensity = incoming(g_intensity, intensity.shape)
+    g_alpha = torch.empty_like(alphas)
+    g_source = torch.empty_like(alphas)
+    if g_flux is None and g_intensity is None:
+        return g_alpha.zero_(), g_source.zero_()
+    q = torch.empty_like(intensity)
+    s_bar = torch.empty_like(intensity)
+    scratch = (torch.empty((n_models, n_depth - 1, n_nu, n_theta), dtype=dtype,
+                           device=alphas.device) if inward_rays else None)
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    fn = _cuda.bind("formal_solution_grad", f"formal_solution_grad_{suffix}",
+                    _TRACE_GRAD_ARGS)
+
+    def p(t):
+        return ctypes.c_void_p(None) if t is None else _cuda.ptr(t)
+
+    status = fn(
+        p(alphas), p(source), p(ray_distances), p(weights), p(correction), p(intensity),
+        p(g_flux), p(g_intensity), p(q), p(s_bar), p(scratch), p(g_alpha), p(g_source),
+        n_models, n_depth, n_nu, n_theta, int(bool(inward_rays)),
+        _cuda.stream_ptr(alphas.device),
+    )
+    if inward_rays:
+        raytrace_grad_cuda.inward_launches += 1
+    else:
+        raytrace_grad_cuda.launches += 1
+    _cuda.check("formal_solution_grad", status)
+    return g_alpha, g_source
 
 
 #: launches of the outward (plane-parallel) and inward-sweep (spherical)
-#: variants of Kernel 2
+#: variants of Kernel 2, and of Kernel 2b
 raytrace_cuda.launches = 0
 raytrace_cuda.inward_launches = 0
+raytrace_grad_cuda.launches = 0
+raytrace_grad_cuda.inward_launches = 0

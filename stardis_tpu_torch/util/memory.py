@@ -27,6 +27,11 @@ unsegmented and in budgeted segments.  ``choose_nu_segments`` inverts
 it for the smallest K whose footprint fits.  There is no retry on an
 out-of-memory error: a budget too small for one pixel returns K = 1 and
 the device reports the failure.
+
+The model covers forward-only runs.  Under autograd every range keeps its
+saved tensors until the backward, and the backward adds Kernel 2b's
+buffers, so segments do not bound the peak; ``chip_smoke.py`` phase 13
+measures a differentiated segmented run's peak beside this estimate.
 """
 
 from __future__ import annotations

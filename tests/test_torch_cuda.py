@@ -200,3 +200,109 @@ def test_segmented_run_stardis_equals_unsegmented(cuda, tmp_path):
     torch.testing.assert_close(parts.I_nus, whole.I_nus, rtol=1e-6, atol=0)
     np.testing.assert_allclose(parts.opacities.total_alphas,
                                whole.opacities.total_alphas.cpu().numpy(), rtol=1e-6, atol=0)
+
+
+def _row_err(ours, ref, axis):
+    """max over the other axes of max_axis |ours - ref| / max_axis |ref|."""
+    diff = (ours - ref).abs().amax(dim=axis)
+    scale = ref.abs().amax(dim=axis)
+    assert bool((diff[scale == 0] == 0).all())
+    return (diff[scale > 0] / scale[scale > 0]).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("p_begin, n_out", [(0, 2000), (700, 600)], ids=["whole", "range"])
+def test_line_grad_kernel_matches_plain(cuda, dtype, p_begin, n_out):
+    """Kernel 1b through the autograd Function against its plain version
+    (float64 at 1e-12, float32 at 1e-4 of each depth's largest gradient),
+    over a model axis of 2; two launches equal bit for bit."""
+    grid, line_nu, centers, alpha, gamma, doppler, d_nu = _lines(dtype, cuda)
+    scale = torch.tensor([1.0, 30.0], device=cuda, dtype=dtype)[:, None, None]
+    a = (alpha[None] * scale).requires_grad_()
+    g = (gamma[None] * scale.sqrt()).requires_grad_()
+    d = doppler[None].expand(2, -1, -1).contiguous().requires_grad_()
+    iw = tlk.window_half_widths(a, g, d, d_nu, grid.shape[0])
+    g_out = torch.randn((2, alpha.shape[1], n_out), device=cuda, dtype=dtype,
+                        generator=torch.Generator(cuda).manual_seed(0))
+
+    def kernel_grads():
+        prepared = tlk.prepare_line_opacity(grid, line_nu, centers, a, g, d, iw)
+        out = tlk.line_opacity_range(prepared, p_begin, n_out)
+        return torch.autograd.grad(out, (a, g, d), g_out)
+
+    before = tlk.accumulate_line_opacity_grad_cuda.launches
+    first, second = kernel_grads(), kernel_grads()
+    torch.cuda.synchronize()
+    assert tlk.accumulate_line_opacity_grad_cuda.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    plain = tlk.accumulate_line_opacity_plain_backward(
+        g_out, grid, line_nu, centers, a.detach(), g.detach(), d.detach(), iw,
+        p_begin=p_begin, n_out=n_out)
+    bound = 1e-12 if dtype == torch.float64 else 1e-4
+    for k, p in zip(first, plain):
+        assert _row_err(k, p, axis=1) <= bound  # per (model, depth), over lines
+
+
+def _plane_atmosphere(n_depth=56, n_nu=2000, n_theta=20, seed=1):
+    rng = np.random.default_rng(seed)
+    depth = np.linspace(1.0, 0.0, n_depth)[:, None]
+    alphas = 10.0 ** (-9.0 + 9.0 * depth) * (1.0 + 50.0 * rng.random((1, n_nu)) ** 8)
+    source = 1e-5 * (1.0 + 3.0 * depth) ** 4 * (1.0 + 0.05 * rng.random((1, n_nu)))
+    thetas, weights = tsolver.gauss_legendre_thetas(n_theta)
+    ray = np.full((n_depth - 1, 1), 2e6) / np.cos(thetas)[None, :]
+    return [a[None] for a in (alphas, source, ray)] + [None, weights]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("track", [False, True], ids=["F", "F_and_I"])
+@pytest.mark.parametrize("spherical", [False, True], ids=["plane", "spherical"])
+def test_formal_solution_grad_kernel_matches_plain(cuda, dtype, track, spherical):
+    """Kernel 2b through the autograd Function against autograd of
+    raytrace_plain, per (model, frequency) column over depth: float64 at
+    1e-9 of the column's largest gradient (the two sum the weights'
+    cancelling terms in other orders); in float32, where the gradient of
+    these columns is itself only good to a few per cent against float64,
+    the kernel's 2-norm error against the float64 gradient is at most 1.5x
+    the plain version's (the worst column's error swings with the incoming
+    gradient's cancellations in both).  Two launches are equal bit for
+    bit."""
+    if spherical:
+        alphas, source, ray, corr, weights = _spherical_atmosphere(2, 56, 1000, 20, seed=3)
+    else:
+        alphas, source, ray, corr, weights = _plane_atmosphere()
+    args = [torch.as_tensor(v, device=cuda).to(dtype) for v in (alphas, source, ray, weights)]
+    a, s = args[0].clone().requires_grad_(), args[1].clone().requires_grad_()
+    gen = torch.Generator(cuda).manual_seed(1)
+    g_f = torch.randn(a.shape, device=cuda, dtype=dtype, generator=gen)
+    g_i = (torch.randn((*a.shape, len(weights)), device=cuda, dtype=dtype, generator=gen)
+           if track else None)
+
+    def kernel_grads():
+        f, i = tsolver.raytrace(a, s, args[2], args[3], inward_rays=spherical,
+                                photospheric_correction=corr,
+                                track_individual_intensities=track)
+        outs = [f] + ([i] if track else [])
+        grads = [g_f] + ([g_i] if track else [])
+        return torch.autograd.grad(outs, (a, s), grads)
+
+    counter = "inward_launches" if spherical else "launches"
+    before = getattr(tsolver.raytrace_grad_cuda, counter)
+    first, second = kernel_grads(), kernel_grads()
+    torch.cuda.synchronize()
+    assert getattr(tsolver.raytrace_grad_cuda, counter) == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+    def plain(*tensors):
+        return tsolver.raytrace_plain_backward(*tensors, inward_rays=spherical,
+                                               photospheric_correction=corr)
+
+    ref = plain(a.detach(), s.detach(), args[2], args[3], g_f, g_i)
+    if dtype == torch.float64:
+        for k, p in zip(first, ref):
+            assert _row_err(k, p, axis=1) <= 1e-9
+        return
+    f64 = [None if t is None else t.double()
+           for t in (a.detach(), s.detach(), args[2], args[3], g_f, g_i)]
+    exact = plain(*f64)
+    for k, p, e in zip(first, ref, exact):
+        assert (k.double() - e).norm() <= 1.5 * (p.double() - e).norm()
