@@ -16,6 +16,10 @@ Phases (any failure exits non-zero and prints no result):
      backward) against its plain version on the same inputs with a seeded
      normal incoming gradient: float64 at 1e-12 and float32 at 1e-4 of each
      depth's largest gradient, two launches equal bit for bit, both timed;
+     then on two more input sets of the 5k lines, the far wing (Doppler
+     widths / 1000 and grid-wide windows: |x| to ~3e6) and half-windows of
+     1-3 pixels beside grid-wide ones, float64 at 1e-12 and float32 at 1e-4
+     against the plain gradient in float64;
   4. Kernel 2 (formal solution) against its plain version at the full
      Sim100AA shape (56 depths x 10k lambda x 20 theta), float32 and float64;
      Kernel 2b (its backward) against autograd of raytrace_plain there,
@@ -79,8 +83,12 @@ Phases (any failure exits non-zero and prints no result):
      at rtol 1e-6; on the flagship's own prepared inputs, Kernel 1 against
      its plain version on 512-pixel ranges at both grid ends, across each
      K = 4 boundary and across a deep window's edge (float32 at 1e-4 of
-     each row's maximum, float64 at rtol 1e-12), and Kernel 2 on the whole
-     [56, 1M] x 20 theta against its plain version (rtol 1e-5);
+     each row's maximum, float64 at rtol 1e-12); Kernel 1b on the same
+     prepared inputs over the whole grid (timed, bound from the flagship's
+     in-window evaluations, two launches equal bit for bit) and on the same
+     ranges against its plain version (float64 at 1e-12, float32 at 1e-4 of
+     each depth's largest gradient); and Kernel 2 on the whole [56, 1M] x 20
+     theta against its plain version (rtol 1e-5);
  11. serving: SpectralService on Sim100AA answering Teff 5777, 6300 and
      9000 K, each against run_stardis (rtol 1e-5), warm per-request walls
      beside run_stardis's; the same requests through nu_segments=3 against
@@ -722,6 +730,55 @@ def main():
                 log(f"block-max windows (torch amax over {list(prep.iw.shape)} int32): "
                     f"{amax_ms:.4f} ms; bound {amax_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms (bytes)")
             del args, iw, prep, kern, again, plain
+
+        # the far wing and the window extremes, on the subset's lines: (a)
+        # Doppler widths / 1000 and every window spanning the grid, so |x|
+        # runs to ~3e6 (the plain float32 region-I derivative overflows
+        # beyond |x| ~ 6e4 and rounds to 0 there); (b) half-windows of 1-3
+        # pixels on half the pairs, the whole grid on the others.  The inputs
+        # are made in float32; the float64 kernel and the plain version run
+        # on their exact float64 copies, and the float32 kernel is held to
+        # that float64 plain gradient (1e-4 of each depth's largest; the
+        # plain float32 version's own error is printed beside it)
+        args32, iw = line_inputs(torch.float32, subset.numpy())
+        n_lines, n_depth = iw.shape
+        n_nu = len(plan.tracing_nus)
+        gen = torch.Generator(dev).manual_seed(6)
+        short = torch.randint(1, 4, iw.shape, device=dev, dtype=iw.dtype, generator=gen)
+        cases = {
+            "far wing (Doppler / 1000, grid-wide windows)": (
+                args32[:5] + (args32[5] * 1e-3,), torch.full_like(iw, n_nu + 1)),
+            "half-windows of 1-3 pixels and grid-wide": (
+                args32, torch.where(torch.rand(iw.shape, device=dev, generator=gen) < 0.5,
+                                    short, torch.full_like(iw, n_nu + 1))),
+        }
+        g32 = torch.randn((1, n_depth, n_nu), device=dev, generator=gen)
+        for label, (a32, iw_c) in cases.items():
+            a64 = tuple(t.double() if t.is_floating_point() else t for t in a32)
+            ref = lk.accumulate_line_opacity_plain_backward(g32[0].double(), *a64, iw_c)
+            errs = {}
+            for name, a_c in (("f64", a64), ("f32", a32)):
+                gin = g32.double() if name == "f64" else g32
+                prep = lk.prepare_line_opacity(*a_c, iw_c)
+                kern = lk.accumulate_line_opacity_grad_cuda(prep, gin, 0, n_nu)
+                again = lk.accumulate_line_opacity_grad_cuda(prep, gin, 0, n_nu)
+                torch.cuda.synchronize()
+                same = all(torch.equal(x, y) for x, y in zip(kern, again))
+                worst = max(row_err(k[0].double(), r.T)[0] for k, r in zip(kern, ref))
+                row_bound = 1e-12 if name == "f64" else 1e-4
+                errs[name] = worst
+                if not (worst <= row_bound and same):
+                    failures.append(f"kernel 1b {name} {label}: row err {worst:.3e}, same {same}")
+                del prep, kern, again
+            plain32 = lk.accumulate_line_opacity_plain_backward(g32[0], *a32, iw_c)
+            p32 = [row_err(p.double().T, r.T)[0] for p, r in zip(plain32, ref)]
+            log(f"kernel 1b {label} ({n_lines} lines x {n_depth} x {n_nu // 1000}k): max row "
+                f"err / row max against the float64 plain gradient: kernel f64 {errs['f64']:.3e} "
+                f"(bound 1e-12), kernel f32 {errs['f32']:.3e} (bound 1e-4), plain f32 d/dalpha, "
+                f"d/dgamma, d/ddoppler {p32[0]:.3e}, {p32[1]:.3e}, {p32[2]:.3e}; two launches "
+                "equal bit for bit")
+            del ref, plain32
+        del args32, iw, cases
     except Exception as exc:  # noqa: BLE001
         failures.append(f"kernel 1b phase: {exc!r}")
 
@@ -1486,6 +1543,10 @@ def main():
                                    FLAGSHIP_POINTS, 4)
         log(f"flagship Kernel 1 in-window evaluations by Voigt region: {evals}; bound "
             f"{f_bound:.3f} ms ({f_by}); line_opacity stage {timings['line_opacity'] * 1e3:.1f} ms")
+        g_bound, g_by = line_grad_bound(evals, 1, fplan.line_data.n_lines,
+                                        len(fplan.temperatures), FLAGSHIP_POINTS, 4)
+        g_flag = torch.randn((1, len(fplan.temperatures), FLAGSHIP_POINTS), device=dev,
+                             generator=torch.Generator(dev).manual_seed(7))
 
         # Kernel 1 at the flagship's shape against its plain version, on
         # the main path's prepared inputs: ranges of FLAGSHIP_CHECK_PIXELS
@@ -1538,8 +1599,70 @@ def main():
                 + ("rel err" if dtype == torch.float64 else "row err / row max")
                 + f" {worst:.3e} (bound {1e-12 if dtype == torch.float64 else 1e-4:g}); "
                 f"plain {t_plain:.1f} s")
-            del kin, pin, kern, plain
-        del c_d, st, qd
+            del kern, plain
+
+            # Kernel 1b at the flagship's shape: over the whole grid (timed,
+            # float32), and on the same ranges against its plain version,
+            # float64 at 1e-12 and float32 at 1e-4 of each depth's largest
+            # gradient.  The float32 kernel is held to the plain version run
+            # in float64 on its float32 inputs: a float32 sum of a deep
+            # window's terms is itself off by up to ~5e-5 of the depth's
+            # largest d/dD (the plain float32 version's own error, printed),
+            # so two float32 sums in other orders differ by up to twice that
+            g_d = g_flag.to(dtype)
+            if dtype == torch.float32:
+                grads = lk.accumulate_line_opacity_grad_cuda(kin, g_d, 0, FLAGSHIP_POINTS)
+                again = lk.accumulate_line_opacity_grad_cuda(kin, g_d, 0, FLAGSHIP_POINTS)
+                torch.cuda.synchronize()
+                same = all(torch.equal(x, y) for x, y in zip(grads, again))
+                finite = all(bool(torch.isfinite(x).all()) for x in grads)
+                del grads, again
+                g_ms = cuda_ms(torch, lambda: lk.accumulate_line_opacity_grad_cuda(
+                    kin, g_d, 0, FLAGSHIP_POINTS), 2, warm=False)
+                sched = lk.line_grad_schedule(kin.centers, kin.iw, FLAGSHIP_POINTS, 0,
+                                              FLAGSHIP_POINTS, lk.line_grad_chunk(dtype))
+                log(f"flagship Kernel 1b f32 over the whole grid ({fplan.line_data.n_lines} lines "
+                    f"x 56 x {FLAGSHIP_POINTS}): {g_ms:.1f} ms; bound {g_bound:.3f} ms ({g_by}); "
+                    f"{sched.n_units} blocks of up to {sched.split_pixels} pixels; finite "
+                    f"{finite}; two launches equal bit for bit: {same}")
+                if not (same and finite):
+                    failures.append(f"flagship Kernel 1b: same {same}, finite {finite}")
+                del sched
+            worst, worst_p32, t_plain = 0.0, 0.0, 0.0
+            p64 = [t.double() if t.is_floating_point() else t
+                   for t in (pin.grid, pin.line_nu, pin.centers, pin.alpha, pin.gamma,
+                             pin.doppler, pin.iw)]
+            for a in starts:
+                g_r = g_d[:, :, a:a + n_chk].contiguous()
+                kern = lk.accumulate_line_opacity_grad_cuda(kin, g_r, a, n_chk)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                plain = lk.accumulate_line_opacity_plain_backward(
+                    g_r.double(), *p64, budget=FLAGSHIP_PLAIN_BUDGET, p_begin=a, n_out=n_chk)
+                torch.cuda.synchronize()
+                t_plain += time.perf_counter() - t0
+                errs = [row_err(k.double(), q.transpose(1, 2)) for k, q in zip(kern, plain)]
+                err = max(e for e, _ in errs)
+                worst = max(worst, err)
+                if not (err <= (1e-12 if dtype == torch.float64 else 1e-4)
+                        and all(ok for _, ok in errs)):
+                    failures.append(f"flagship Kernel 1b {dtype} range at {a}: err {err:.3e}")
+                if dtype == torch.float32:
+                    plain32 = lk.accumulate_line_opacity_plain_backward(
+                        g_r, pin.grid, pin.line_nu, pin.centers, pin.alpha, pin.gamma,
+                        pin.doppler, pin.iw, budget=FLAGSHIP_PLAIN_BUDGET, p_begin=a,
+                        n_out=n_chk)
+                    worst_p32 = max(worst_p32, max(
+                        row_err(q32.double().transpose(1, 2), q.transpose(1, 2))[0]
+                        for q32, q in zip(plain32, plain)))
+                    del plain32
+            p32_note = (f"; the plain float32 version against it {worst_p32:.3e}"
+                        if dtype == torch.float32 else "")
+            log(f"flagship Kernel 1b {str(dtype)[6:]} vs the plain version in float64 on "
+                f"{len(starts)} ranges: max row err / row max {worst:.3e} (bound "
+                f"{1e-12 if dtype == torch.float64 else 1e-4:g}){p32_note}; plain {t_plain:.1f} s")
+            del kin, pin, p64, kern, plain, g_d, g_r
+        del c_d, st, qd, g_flag
 
         # Kernel 2 at the flagship's full shape against its plain version;
         # the plain version runs on column blocks (each column is its own
@@ -1799,7 +1922,8 @@ def main():
         walls = [step_walls() for _ in range(3)]
         fwd, bwd = sorted(w[0] for w in walls)[1], sorted(w[1] for w in walls)[1]
         peak, _ = peak_bytes(torch, step_walls)
-        dev_ms = kernel_device_ms(torch, step_walls, ("line_opacity_grad_kernel",
+        # "line_opacity_grad" sums Kernel 1b's two passes
+        dev_ms = kernel_device_ms(torch, step_walls, ("line_opacity_grad",
                                                       "trace_grad_kernel", "grad_sum_kernel",
                                                       "line_opacity_kernel", "trace_kernel"))
         log(f"fit step (float32, median of 3): forward {fwd:.4f} s, backward {bwd:.4f} s, "

@@ -264,7 +264,9 @@ class GridInterpolator:
                 continue
             i = torch.clamp(torch.searchsorted(ax, x.detach()) - 1, 0, len(ax) - 2)
             t = (x - ax[i]) / (ax[i + 1] - ax[i])
-            cells.append((i, torch.clamp(t, 0.0, 1.0)))
+            # minimum/maximum rather than clamp: on a node (t = 0 or 1) they
+            # split the derivative in half, as jnp.clip does
+            cells.append((i, torch.minimum(torch.maximum(t, t.new_zeros(())), t.new_ones(()))))
         out = 0.0
         for corner in itertools.product((0, 1), repeat=len(cells)):
             w = 1.0

@@ -41,7 +41,8 @@ from .voigt import (
     faddeeva_real,
     faddeeva_real_grad,
     faddeeva_real_region1,
-    faddeeva_real_region1_grad,
+    faddeeva_real_region1_grad_euler,
+    faddeeva_real_region2_euler,
 )
 
 MIN_WINDOW_PIXELS = 10
@@ -309,30 +310,40 @@ def _voigt_in_window(delta_nu, doppler_width, gamma):
 
 
 def _faddeeva_grad_in_window(x, y):
-    """(Re w, d Re w/dx, d Re w/dy) on in-window pairs, with the forward's
-    region split: region I everywhere, the full chain where |x| + y <= 15."""
-    re, wx, wy = faddeeva_real_region1_grad(x, y)
-    core = torch.abs(x) + y <= 15.0
-    re[core], wx[core], wy[core] = faddeeva_real_grad(x[core], y[core])
-    return re, wx, wy
+    """(Re w, d Re w/dy, Re w + x d Re w/dx + y d Re w/dy) on in-window
+    pairs, with the forward's region split: region I everywhere, the full
+    chain where |x| + y <= 15.  The last value is taken in closed form in
+    regions I and II (``faddeeva_real_region1_grad_euler``,
+    ``faddeeva_real_region2_euler``), where its three terms cancel by
+    ~|z|^2, and summed term by term in regions III and IV (|z| < 5.5)."""
+    re, wy, wd = faddeeva_real_region1_grad_euler(x, y)
+    s = torch.abs(x) + y
+    core = s <= 15.0
+    xc, yc = x[core], y[core]
+    re_c, wx_c, wy_c = faddeeva_real_grad(xc, yc)
+    wd_c = torch.where(s[core] > 5.5, faddeeva_real_region2_euler(xc, yc),
+                       re_c + xc * wx_c + yc * wy_c)
+    re[core], wy[core], wd[core] = re_c, wy_c, wd_c
+    return re, wy, wd
 
 
-def _line_grad_finish(s_w, s_y, s_x, alpha, gamma, doppler):
+def _line_grad_finish(s_w, s_y, s_d, alpha, doppler):
     """The three gradients of one (line, depth) pair from its window sums
-    S_w = sum g Re w, S_y = sum g dRe w/dy, S_x = sum g x dRe w/dx
-    (g the incoming gradient per pixel), with phi = Re w / (sqrt(pi) D),
-    x = dnu / D, y = gamma / (sqrt(pi) pi) / D:
+    S_w = sum g Re w, S_y = sum g dRe w/dy and S_D = sum g (Re w + x dRe w/dx
+    + y dRe w/dy) (g the incoming gradient per pixel), with
+    phi = Re w / (sqrt(pi) D), x = dnu / D, y = gamma / (sqrt(pi) pi) / D:
 
         dL/dalpha = sum g phi             = S_w / (sqrt(pi) D)
         dL/dgamma = alpha sum g dphi/dgamma = alpha S_y / (sqrt(pi) pi D) / (sqrt(pi) D)
-        dL/dD     = alpha sum g dphi/dD   = -alpha (S_w + S_x + y S_y) / (sqrt(pi) D) / D
+        dL/dD     = alpha sum g dphi/dD   = -alpha S_D / (sqrt(pi) D) / D
 
-    Kernel 1b finishes each pair with these operations in this order."""
-    y = gamma / (SQRT_PI * PI) / doppler
+    S_D is summed as one quantity, not as S_w + S_x + y S_y, whose terms
+    cancel in the far wing.  Kernel 1b finishes each pair with these
+    operations in this order."""
     inv = 1.0 / (SQRT_PI * doppler)
     return (s_w * inv,
             alpha * s_y / (SQRT_PI * PI) / doppler * inv,
-            -alpha * (s_w + s_x + y * s_y) * inv / doppler)
+            -alpha * s_d * inv / doppler)
 
 
 def accumulate_line_opacity_plain_backward(grad, grid, line_nu, centers, alpha, gamma,
@@ -347,8 +358,8 @@ def accumulate_line_opacity_plain_backward(grad, grid, line_nu, centers, alpha, 
     every in-window pair of every chunk alive: each chunk of lines (cut as
     the forward cuts them) evaluates Re w and its derivatives on its
     in-window pairs of the range and adds g Re w, g dRe w/dy and
-    g x dRe w/dx into per-(line, depth) sums; ``_line_grad_finish`` turns
-    them into the gradients."""
+    g (Re w + x dRe w/dx + y dRe w/dy) into per-(line, depth) sums;
+    ``_line_grad_finish`` turns them into the gradients."""
     if alpha.ndim == 3:
         parts = [accumulate_line_opacity_plain_backward(
             grad[b], grid, line_nu, centers, alpha[b], gamma[b], doppler[b], iw[b], budget,
@@ -363,12 +374,12 @@ def accumulate_line_opacity_plain_backward(grad, grid, line_nu, centers, alpha, 
         dop = doppler[sl][li, di]
         x = dnu / dop
         y = gamma[sl][li, di] / (SQRT_PI * PI) / dop
-        re, wx, wy = _faddeeva_grad_in_window(x, y)
+        re, wy, wd = _faddeeva_grad_in_window(x, y)
         g = grad[di, pi + (p0 - p_begin)]
         flat = (li + sl.start) * n_depth + di
-        sums.index_add_(1, flat, torch.stack([g * re, g * wy, g * (x * wx)]))
-    s_w, s_y, s_x = (s.reshape(n_lines, n_depth) for s in sums)
-    return _line_grad_finish(s_w, s_y, s_x, alpha, gamma, doppler)
+        sums.index_add_(1, flat, torch.stack([g * re, g * wy, g * wd]))
+    s_w, s_y, s_d = (s.reshape(n_lines, n_depth) for s in sums)
+    return _line_grad_finish(s_w, s_y, s_d, alpha, doppler)
 
 
 _LINE_ARGS = (
@@ -411,14 +422,92 @@ accumulate_line_opacity_cuda.launches = 0
 accumulate_line_opacity_cuda.range_launches = 0
 
 
-_LINE_GRAD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+#: Kernel 1b's tile of lines per block (csrc/line_opacity_grad.cu's TILE),
+#: and the most splits one launch aims at (its scratch holds 3 x TILE sums
+#: per split)
+LINE_GRAD_TILE = 32
+LINE_GRAD_MAX_SPLITS = 1 << 16
+
+
+def line_grad_chunk(dtype):
+    """Pixels Kernel 1b stages in shared memory at a time: 8 KB of each
+    operand (csrc/line_opacity_grad.cu's chunk_pixels)."""
+    return 8192 * 8 // torch.finfo(dtype).bits
+
+
+@dataclasses.dataclass
+class LineGradSchedule:
+    """Kernel 1b's work over pixels [p_begin, p_begin + n_out): the lines of
+    each (model, depth) in tiles of LINE_GRAD_TILE, each tile's union span
+    [tile_lo, tile_hi) of its windows cut to the range, and that span cut
+    into splits of ``split_pixels`` (a multiple of the staged chunk).  Split
+    s of tile f covers [tile_lo[f] + s split_pixels, min(tile_lo[f] + (s + 1)
+    split_pixels, tile_hi[f])); the splits are numbered tile by tile
+    (``tile_start[f]`` is tile f's first, ``unit_tile[u]`` the tile of split
+    u), and the kernel's second pass adds a line's split sums in that
+    order."""
+
+    tile_lo: torch.Tensor  # [B * D * n_tiles] int32
+    tile_hi: torch.Tensor
+    tile_start: torch.Tensor  # [B * D * n_tiles + 1] int32
+    unit_tile: torch.Tensor  # [n_units] int32
+    split_pixels: int
+    n_units: int
+    n_tiles: int
+
+
+def pair_windows(centers, iw, n_nu, p_begin, n_out):
+    """[lo, hi) of each pair's window -iw <= p - centre < iw cut to the grid
+    and to the range, as int64 [..., L] for iw [..., L] (empty: hi <= lo)."""
+    c = centers.to(torch.int64)
+    half = iw.to(torch.int64)
+    lo = torch.clamp(c - half, min=max(p_begin, 0))
+    hi = torch.clamp(c + half, max=min(p_begin + n_out, n_nu))
+    return lo, hi
+
+
+def line_grad_schedule(centers, iw, n_nu, p_begin, n_out, chunk):
+    """Kernel 1b's schedule (``LineGradSchedule``) from the centres [L] and
+    the half-windows [B, D, L] (the prepared layout), for ``chunk`` pixels
+    staged at a time (``line_grad_chunk``), by torch ops on their
+    device."""
+    n_models, n_depth, n_lines = iw.shape
+    tile = LINE_GRAD_TILE
+    n_tiles = -(-n_lines // tile)
+    lo, hi = pair_windows(centers, iw, n_nu, p_begin, n_out)
+    empty = hi <= lo
+    big = n_nu + 1  # past every window's end
+    lo = lo.masked_fill(empty, big).reshape(n_models * n_depth, n_lines)
+    hi = hi.masked_fill(empty, -1).reshape(n_models * n_depth, n_lines)
+    pad = n_tiles * tile - n_lines
+    lo = torch.nn.functional.pad(lo, (0, pad), value=big).reshape(-1, n_tiles, tile).amin(2)
+    hi = torch.nn.functional.pad(hi, (0, pad), value=-1).reshape(-1, n_tiles, tile).amax(2)
+    span = torch.clamp(hi - lo, min=0).reshape(-1)
+    lo = torch.where(span > 0, lo.reshape(-1), 0)
+    hi = lo + span
+    total_chunks = int(((span + chunk - 1) // chunk).sum())
+    split_pixels = chunk * max(1, -(-total_chunks // LINE_GRAD_MAX_SPLITS))
+    n_splits = (span + split_pixels - 1) // split_pixels
+    tile_start = torch.cat([n_splits.new_zeros(1), torch.cumsum(n_splits, 0)])
+    n_units = int(tile_start[-1])
+    unit_tile = torch.repeat_interleave(
+        torch.arange(len(span), device=span.device, dtype=torch.int32), n_splits,
+        output_size=n_units)
+    i32 = torch.int32
+    return LineGradSchedule(lo.to(i32), hi.to(i32), tile_start.to(i32), unit_tile,
+                            split_pixels, n_units, n_tiles)
+
+
+_LINE_GRAD_ARGS = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 def accumulate_line_opacity_grad_cuda(prepared, grad, p_begin, n_out):
     """Kernel 1b (csrc/line_opacity_grad.cu): the gradients of Kernel 1's
     range [p_begin, p_begin + n_out) with respect to alpha, gamma and
     doppler, given grad [B, D, n_out]; three [B, D, L] tensors in the
-    prepared layout, each element written once."""
+    prepared layout, each element written once.  One launch runs both of
+    the kernel's passes over ``line_grad_schedule``'s splits, with a
+    [n_units, 3, LINE_GRAD_TILE] scratch of partial sums between them."""
     q = prepared
     n_models, n_depth, n_lines = q.alpha.shape
     dtype = q.alpha.dtype
@@ -430,18 +519,26 @@ def accumulate_line_opacity_grad_cuda(prepared, grad, p_begin, n_out):
     outs = [torch.empty_like(q.alpha) for _ in range(3)]
     if n_lines == 0 or n_models * n_depth == 0:
         return outs
+    n_nu = q.grid.shape[0]
+    chunk = line_grad_chunk(dtype)
+    sched = line_grad_schedule(q.centers, q.iw, n_nu, p_begin, n_out, chunk)
+    scratch = torch.empty((max(sched.n_units, 1), 3, LINE_GRAD_TILE), dtype=dtype,
+                          device=q.grid.device)
     suffix = "f32" if dtype == torch.float32 else "f64"
     fn = _cuda.bind("line_opacity_grad", f"line_opacity_grad_{suffix}", _LINE_GRAD_ARGS)
     p = _cuda.ptr
     status = fn(
         p(q.grid), p(q.line_nu), p(q.centers), p(q.alpha), p(q.gamma), p(q.doppler),
-        p(q.iw), p(grad), *(p(o) for o in outs), n_models, n_lines, n_depth,
-        p_begin, n_out, q.grid.shape[0], _cuda.stream_ptr(q.grid.device),
+        p(q.iw), p(grad), *(p(o) for o in outs), p(sched.tile_lo), p(sched.tile_hi),
+        p(sched.tile_start), p(sched.unit_tile), p(scratch), n_models, n_lines, n_depth,
+        p_begin, n_out, n_nu, sched.n_units, sched.split_pixels, LINE_GRAD_TILE, chunk,
+        _cuda.stream_ptr(q.grid.device),
     )
     accumulate_line_opacity_grad_cuda.launches += 1
     _cuda.check("line_opacity_grad", status)
     return outs
 
 
-#: launches of Kernel 1b (whole grid and ranges alike)
+#: launches of Kernel 1b (whole grid and ranges alike; one per call, both
+#: passes)
 accumulate_line_opacity_grad_cuda.launches = 0

@@ -147,6 +147,44 @@ def faddeeva_real_region1_grad(x, y):
     return re, wr, -wi
 
 
+def faddeeva_real_region1_grad_euler(x, y):
+    """(Re w, d Re w/dy, Re w + x d Re w/dx + y d Re w/dy) of the region-I
+    rational, the last in closed form.  With a = z^2 - 1/2 and q = 1/a,
+    sqrt(pi) w = i z q and sqrt(pi) dw/dz = -i (q + q^2) (a q = 1), and
+    x d/dx + y d/dy of an analytic function's real part is Re(z w'), so the
+    combination is Re(w + z w') = Im(z q^2) / sqrt(pi).  Its three terms
+    cancel at leading order in the far wing (y/x^2 - 2 y/x^2 + y/x^2): summed
+    term by term in float64 they lose ~2 log10 |x| digits, the closed form
+    none.  One division, by |a|^2: finite in float32 up to |x| ~ 4e9."""
+    ar, ai = x * x - (y * y + 0.5), x * (2.0 * y)
+    r = 1.0 / (ar * ar + ai * ai)
+    qr, qi = ar * r, -ai * r
+    q2r, q2i = qr * qr - qi * qi, 2.0 * qr * qi
+    re = -(x * qi + y * qr) / SQRT_PI
+    return re, (qr + q2r) / SQRT_PI, (x * q2i + y * q2r) / SQRT_PI
+
+
+def faddeeva_real_region2_euler(x, y):
+    """Re w + x d Re w/dx + y d Re w/dy = Re(w + z w') of the region-II
+    rational w = N/D (N = i z (z^2/sqrt(pi) - K), D = z^4 - 3 z^2 + 3/4) in
+    closed form: w + z w' = ((N + z N') D - z N D') / D^2, whose z^7 terms
+    cancel exactly, leaving i z (c5 z^4 + c3 z^2 + c1) / D^2 with
+    c5 = 2K - 6/sqrt(pi), c3 = 3/sqrt(pi), c1 = -3K/2.  Summed term by term
+    the three values cancel by ~|z|^2 (w ~ i / (sqrt(pi) z)), which costs
+    float32 ~1e-4 of the combination in this region."""
+    k2 = 1.4104739589
+    z2r, z2i = _cmul(x, y, x, y)
+    dr, di = _cmul(z2r, z2i, z2r - 3.0, z2i)
+    dr = dr + 0.75
+    pr, pi_ = (2.0 * k2 - 6.0 / SQRT_PI) * z2r + 3.0 / SQRT_PI, (2.0 * k2 - 6.0 / SQRT_PI) * z2i
+    pr, pi_ = _cmul(pr, pi_, z2r, z2i)
+    pr = pr - 1.5 * k2
+    nr, ni = _cmul(x, y, pr, pi_)
+    d2r, d2i = _cmul(dr, di, dr, di)
+    re, _ = _cdiv(-ni, nr, d2r, d2i)
+    return re
+
+
 def faddeeva_real_grad(x, y):
     """(Re w, d Re w/dx, d Re w/dy) of the w4 region that ``faddeeva_real``
     selects at each (x, y) (branchless; the unselected regions' values are

@@ -211,17 +211,26 @@ def _row_err(ours, ref, axis):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("p_begin, n_out", [(0, 2000), (700, 600)], ids=["whole", "range"])
-def test_line_grad_kernel_matches_plain(cuda, dtype, p_begin, n_out):
+@pytest.mark.parametrize("p_begin, n_out, windows", [
+    (0, 2000, "adaptive"), (700, 600, "adaptive"), (0, 2000, "grid_wide"), (0, 2000, "short"),
+], ids=["whole", "range", "grid_wide_windows", "short_windows"])
+def test_line_grad_kernel_matches_plain(cuda, dtype, p_begin, n_out, windows):
     """Kernel 1b through the autograd Function against its plain version
     (float64 at 1e-12, float32 at 1e-4 of each depth's largest gradient),
-    over a model axis of 2; two launches equal bit for bit."""
+    over a model axis of 2; two launches equal bit for bit.  Windows: the
+    adaptive ones; every window spanning the grid (each tile's span split
+    into chunks); half-windows of 1-3 pixels (mostly idle lanes)."""
     grid, line_nu, centers, alpha, gamma, doppler, d_nu = _lines(dtype, cuda)
     scale = torch.tensor([1.0, 30.0], device=cuda, dtype=dtype)[:, None, None]
     a = (alpha[None] * scale).requires_grad_()
     g = (gamma[None] * scale.sqrt()).requires_grad_()
     d = doppler[None].expand(2, -1, -1).contiguous().requires_grad_()
     iw = tlk.window_half_widths(a, g, d, d_nu, grid.shape[0])
+    if windows == "grid_wide":
+        iw = torch.full_like(iw, grid.shape[0] + 1)
+    elif windows == "short":
+        iw = torch.randint(1, 4, iw.shape, device=cuda, dtype=iw.dtype,
+                           generator=torch.Generator(cuda).manual_seed(2))
     g_out = torch.randn((2, alpha.shape[1], n_out), device=cuda, dtype=dtype,
                         generator=torch.Generator(cuda).manual_seed(0))
 
