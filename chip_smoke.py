@@ -11,15 +11,20 @@ Phases (any failure exits non-zero and prints no result):
      5k lines x 56 depths x 10k lambda: float64 at rtol 1e-12, float32 at
      max|diff| <= 1e-5 max|plain| per depth row; then both timed at the
      slice's shape (all 47,807 in-window lines, float32; bound 1e-4 per
-     row for the two summation orders of that many float32 terms); the
-     per-depth widest window (torch amax) timed; Kernel 1b (the line sum's
-     backward) against its plain version on the same inputs with a seeded
-     normal incoming gradient: float64 at 1e-12 and float32 at 1e-4 of each
-     depth's largest gradient, two launches equal bit for bit, both timed;
-     then on two more input sets of the 5k lines, the far wing (Doppler
-     widths / 1000 and grid-wide windows: |x| to ~3e6) and half-windows of
-     1-3 pixels beside grid-wide ones, float64 at 1e-12 and float32 at 1e-4
-     against the plain gradient in float64;
+     row for the two summation orders of that many float32 terms; two
+     launches equal bit for bit); the (pixel, depth, line) triples the
+     kernel's blocks walk beside the in-window evaluations; Kernel 1 on the
+     5k lines' far wing (Doppler widths / 1000 and grid-wide windows: |x|
+     to ~3e6) and with half-windows of 1-3 pixels beside grid-wide ones,
+     against the plain sum in float64: float64 at 1e-12 per element,
+     float32 at 1e-4 of each row's maximum, two launches equal bit for
+     bit; the per-depth widest window (torch amax) timed; Kernel 1b (the
+     line sum's backward) against its plain version on the same inputs
+     with a seeded normal incoming gradient: float64 at 1e-12 and float32
+     at 1e-4 of each depth's largest gradient, two launches equal bit for
+     bit, both timed;
+     then on the far wing and the 1-3-pixel windows as Kernel 1, float64
+     at 1e-12 and float32 at 1e-4 against the plain gradient in float64;
   4. Kernel 2 (formal solution) against its plain version at the full
      Sim100AA shape (56 depths x 10k lambda x 20 theta), float32 and float64;
      Kernel 2b (its backward) against autograd of raytrace_plain there,
@@ -83,7 +88,8 @@ Phases (any failure exits non-zero and prints no result):
      at rtol 1e-6; on the flagship's own prepared inputs, Kernel 1 against
      its plain version on 512-pixel ranges at both grid ends, across each
      K = 4 boundary and across a deep window's edge (float32 at 1e-4 of
-     each row's maximum, float64 at rtol 1e-12); Kernel 1b on the same
+     each row's maximum, float64 at rtol 1e-12; two launches equal bit for
+     bit on each) and the walked triples; Kernel 1b on the same
      prepared inputs over the whole grid (timed, bound from the flagship's
      in-window evaluations, two launches equal bit for bit) and on the same
      ranges against its plain version (float64 at 1e-12, float32 at 1e-4 of
@@ -130,7 +136,8 @@ before that holds each kernel's launches (summed over the main paths of
 phases 5, 7-12 and 13; the CLI runs in a process of its own and is not
 counted), error, times and bound (the larger of the operations
 over the float32 peak and the bytes over the memory rate of an H100 SXM,
-from this run's inputs).
+from this run's inputs); Kernel 1's two entries also hold
+yardstick_bound_ms, the bound by its first design's operation count.
 """
 
 import copy
@@ -188,10 +195,19 @@ KERNELS = ("line_opacity", "line_opacity_range", "formal_solution", "formal_solu
 # cores, HBM3), the bound_ms of each kernel
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-# floating-point operations of one in-window Voigt evaluation in Kernel 1,
-# counted from csrc/line_opacity.cu by Humlicek region (the shared x, y,
-# phi and sum: 8; |x| + y and z^2: 7; then the region's own chain)
+# floating-point operations of one in-window Voigt evaluation of Kernel 1's
+# first CUDA design (x by a division, y, phi and the sum: 8; |x| + y and z^2:
+# 7; then the region's own chain, a division per complex quotient), by
+# Humlicek region: the yardstick every later design is compared against
+# (yardstick_bound_ms), kept as it was
 VOIGT_FLOPS = {"I": 25, "II": 39, "III": 87, "IV": 134}
+# the same, counted from csrc/line_opacity.cu as it is (Kernel 1's
+# bound_ms): region I x (2), x^2, x^2 - c0, 4 y^2 x^2, the fma of
+# |z^2 - 1/2|^2 (2), the reciprocal, the numerator's fma (2) and the sum's
+# (2); regions II-IV x (2), |x| + y, the sum's fma (2) and the w4 chain with
+# one reciprocal per quotient (|x| + y, z^2 and the factor sqrt(pi): 8; then
+# 25, 73 or 118, the last two with their region test, exp and cos)
+KERNEL1_FLOPS = {"I": 12, "II": 38, "III": 86, "IV": 131}
 # operations of one depth step of one ray in Kernel 2, counted from
 # csrc/formal_solution.cu (tau 6, weights 8, the parabolic terms 17,
 # the recurrence 6); the inward sweep repeats it per gap
@@ -337,6 +353,23 @@ def voigt_evaluations(nus, line_nu, centers, gamma, doppler, iw):
             "IV": core55 - region3}
 
 
+def walked_triples(centers, iw_max, n_nu, span):
+    """(pixel, depth, line) triples Kernel 1's blocks walk over the whole
+    grid of one model: for each depth's widest window w ([D] iw_max) and
+    each block's span [ws, we) of ``span`` pixels, the lines whose centre
+    lies in (ws - w, we - 1 + w] (the kernel's binary search over the
+    non-increasing centres), times the span's pixels."""
+    import numpy as np
+
+    neg = -np.asarray(centers, dtype=np.int64)  # non-decreasing
+    ws = np.arange(0, n_nu, span)
+    we = np.minimum(ws + span, n_nu)
+    w = np.asarray(iw_max, dtype=np.int64).reshape(-1, 1)
+    first = np.searchsorted(neg, -(we - 1 + w), side="left")
+    last = np.searchsorted(neg, -(ws - w), side="left")
+    return int(((last - first) * (we - ws)).sum())
+
+
 def line_bound(evaluations, n_models, n_lines, n_depth, n_out, itemsize):
     """Kernel 1's bound: the Voigt operations of these evaluations, or
     reading the [B, D, L] line arrays (three floats and the int32 window),
@@ -345,6 +378,14 @@ def line_bound(evaluations, n_models, n_lines, n_depth, n_out, itemsize):
     nbytes = (n_models * n_depth * n_lines * (3 * itemsize + 4) + n_lines * (itemsize + 4)
               + n_out * itemsize + n_models * n_depth * n_out * itemsize)
     return bound(flops, nbytes)
+
+
+def kernel1_bound(evaluations, n_models, n_lines, n_depth, n_out, itemsize):
+    """Kernel 1's bound from the operations its source does (KERNEL1_FLOPS)
+    or line_bound's bytes, whichever takes longer."""
+    bytes_ms, _ = line_bound({}, n_models, n_lines, n_depth, n_out, itemsize)
+    return bound(sum(KERNEL1_FLOPS[k] * v for k, v in evaluations.items()),
+                 bytes_ms * 1e-3 * PEAK_BYTES_PER_S)
 
 
 def trace_bound(n_models, n_depth, n_nu, n_theta, itemsize, inward):
@@ -497,7 +538,7 @@ def main():
     log(f"built {len(builds)} kernels in {time.perf_counter() - t0:.1f} s")
     for name in builds:
         for line in _cuda.BUILD_LOGS.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers", "spill")):
                 log(f"  {name} ptxas {line.strip()}")
 
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
@@ -543,7 +584,30 @@ def main():
         # Kernel 1 as the main path calls it: layout, then one launch
         return lk.line_opacity_range(lk.prepare_line_opacity(*args, iw))
 
+    def window_extremes(args32, iw):
+        """The far wing and the window extremes, on a line set's float32
+        inputs: (a) Doppler widths / 1000 and every window spanning the
+        grid, so |x| runs to ~3e6; (b) half-windows of 1-3 pixels on half
+        the pairs, the whole grid on the others.  {label: (args, iw)}"""
+        n_nu = args32[0].shape[0]
+        gen = torch.Generator(dev).manual_seed(6)
+        short = torch.randint(1, 4, iw.shape, device=dev, dtype=iw.dtype, generator=gen)
+        return {
+            "far wing (Doppler / 1000, grid-wide windows)": (
+                args32[:5] + (args32[5] * 1e-3,), torch.full_like(iw, n_nu + 1)),
+            "half-windows of 1-3 pixels and grid-wide": (
+                args32, torch.where(torch.rand(iw.shape, device=dev, generator=gen) < 0.5,
+                                    short, torch.full_like(iw, n_nu + 1))),
+        }, gen
+
     report = {}
+
+    def log_walk(label, centers, iw_max, n_nu, evals):
+        span = _cuda.load("line_opacity").line_opacity_span_pixels()
+        walked = walked_triples(centers, iw_max, n_nu, span)
+        inside = sum(evals.values())
+        log(f"kernel 1 walk at {label}: {walked:.4e} (pixel, depth, line) triples walked by "
+            f"blocks of {span} pixels, {inside:.4e} in a window ({inside / walked:.1%})")
 
     def check_trace_grad(label, a, s, r, w, corr, inward, timed):
         """Kernel 2b against autograd of raytrace_plain on one model's
@@ -639,6 +703,13 @@ def main():
         # times at the main path's shape (all lines in the window, float32)
         args, iw = line_inputs(torch.float32)
         kern = kernel1(args, iw)
+        again = kernel1(args, iw)
+        torch.cuda.synchronize()
+        same = torch.equal(kern, again)
+        log(f"kernel 1 f32 full slice: two launches equal bit for bit: {same}")
+        if not same:
+            failures.append("kernel 1 f32 full slice: two launches differ")
+        del again
         t_plain0 = time.perf_counter()
         plain = lk.accumulate_line_opacity_plain(*args, iw)
         torch.cuda.synchronize()
@@ -660,13 +731,53 @@ def main():
                 plan.tracing_nus, plan.line_data.nu),
             args[4].double().cpu().numpy(), args[5].double().cpu().numpy(),
             iw.cpu().numpy())
-        bound_ms, bound_by = line_bound(evals, 1, n_all, iw.shape[1], len(plan.tracing_nus), 4)
+        shape = (1, n_all, iw.shape[1], len(plan.tracing_nus), 4)
+        yard_ms, _ = line_bound(evals, *shape)
+        bound_ms, bound_by = kernel1_bound(evals, *shape)
         log(f"kernel 1 in-window evaluations by Voigt region: {evals}; bound {bound_ms:.3f} ms "
-            f"({bound_by})")
+            f"({bound_by}; counted from the source), yardstick {yard_ms:.3f} ms (the first "
+            "design's operations)")
+        log_walk("Sim100AA", lk.line_center_indices(plan.tracing_nus, plan.line_data.nu),
+                 iw.amax(dim=0).cpu().numpy(), len(plan.tracing_nus), evals)
         report["line_opacity"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                   "bound_ms": bound_ms, "bound_by": bound_by,
-                                  "library_ms": None}
+                                  "library_ms": None, "yardstick_bound_ms": yard_ms}
         del args, iw, kern, plain
+
+        # the window extremes (phase 3b's input sets) on the subset's lines:
+        # the float64 kernel and the plain version run on exact float64
+        # copies of the float32 inputs; float64 at 1e-12 per element, the
+        # float32 kernel at 1e-4 of each row's maximum of the float64 plain
+        # sum (the plain float32 version's own error printed beside it);
+        # two launches equal bit for bit
+        args32, iw = line_inputs(torch.float32, subset.numpy())
+        for label, (a32, iw_c) in window_extremes(args32, iw)[0].items():
+            a64 = tuple(t.double() if t.is_floating_point() else t for t in a32)
+            ref = lk.accumulate_line_opacity_plain(*a64, iw_c)
+            errs = {}
+            for name, a_c in (("f64", a64), ("f32", a32)):
+                kern = kernel1(a_c, iw_c)
+                again = kernel1(a_c, iw_c)
+                torch.cuda.synchronize()
+                same = torch.equal(kern, again)
+                if name == "f64":
+                    err = ((kern - ref).abs() / ref.abs().clamp_min(1e-300)).max().item()
+                    ok = err <= 1e-12
+                else:
+                    err, rows_ok = row_err(kern.double(), ref)
+                    ok = err <= 1e-4 and rows_ok
+                errs[name] = err
+                if not (ok and same):
+                    failures.append(f"kernel 1 {name} {label}: err {err:.3e}, same {same}")
+                del kern, again
+            p32 = row_err(lk.accumulate_line_opacity_plain(*a32, iw_c).double(), ref)[0]
+            log(f"kernel 1 {label} ({iw.shape[0]} lines x {iw.shape[1]} x "
+                f"{args32[0].shape[0] // 1000}k) against the float64 plain sum: kernel f64 max "
+                f"rel err {errs['f64']:.3e} (bound 1e-12), kernel f32 max row err / row max "
+                f"{errs['f32']:.3e} (bound 1e-4), plain f32 {p32:.3e}; two launches equal bit "
+                "for bit")
+            del ref
+        del args32, iw
     except Exception as exc:  # noqa: BLE001 - report every phase
         failures.append(f"kernel 1 phase: {exc!r}")
 
@@ -731,27 +842,17 @@ def main():
                     f"{amax_ms:.4f} ms; bound {amax_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms (bytes)")
             del args, iw, prep, kern, again, plain
 
-        # the far wing and the window extremes, on the subset's lines: (a)
-        # Doppler widths / 1000 and every window spanning the grid, so |x|
-        # runs to ~3e6 (the plain float32 region-I derivative overflows
-        # beyond |x| ~ 6e4 and rounds to 0 there); (b) half-windows of 1-3
-        # pixels on half the pairs, the whole grid on the others.  The inputs
-        # are made in float32; the float64 kernel and the plain version run
+        # the far wing and the window extremes (window_extremes), on the
+        # subset's lines (the plain float32 region-I derivative overflows
+        # beyond |x| ~ 6e4 and rounds to 0 there).  The inputs are made in
+        # float32; the float64 kernel and the plain version run
         # on their exact float64 copies, and the float32 kernel is held to
         # that float64 plain gradient (1e-4 of each depth's largest; the
         # plain float32 version's own error is printed beside it)
         args32, iw = line_inputs(torch.float32, subset.numpy())
         n_lines, n_depth = iw.shape
         n_nu = len(plan.tracing_nus)
-        gen = torch.Generator(dev).manual_seed(6)
-        short = torch.randint(1, 4, iw.shape, device=dev, dtype=iw.dtype, generator=gen)
-        cases = {
-            "far wing (Doppler / 1000, grid-wide windows)": (
-                args32[:5] + (args32[5] * 1e-3,), torch.full_like(iw, n_nu + 1)),
-            "half-windows of 1-3 pixels and grid-wide": (
-                args32, torch.where(torch.rand(iw.shape, device=dev, generator=gen) < 0.5,
-                                    short, torch.full_like(iw, n_nu + 1))),
-        }
+        cases, gen = window_extremes(args32, iw)
         g32 = torch.randn((1, n_depth, n_nu), device=dev, generator=gen)
         for label, (a32, iw_c) in cases.items():
             a64 = tuple(t.double() if t.is_floating_point() else t for t in a32)
@@ -1438,13 +1539,15 @@ def main():
                 log(f"kernel 1 range launch f32: {len(ranges)} ranges {ms:.3f} ms together, "
                     f"plain {plain_ms:.1f} ms; max abs err {err:.3e}, max row err / row max "
                     f"{row:.3e} (bound 1e-4); bound as the full launch "
-                    f"{report['line_opacity']['bound_ms']:.3f} ms")
+                    f"{report['line_opacity']['bound_ms']:.3f} ms (yardstick "
+                    f"{report['line_opacity']['yardstick_bound_ms']:.3f} ms)")
                 if not (row <= 1e-4 and rows_ok):
                     failures.append(f"kernel 1 range launch f32 row err {row:.3e}")
                 report["line_opacity_range"] = {
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": report["line_opacity"]["bound_ms"],
                     "bound_by": report["line_opacity"]["bound_by"], "library_ms": None,
+                    "yardstick_bound_ms": report["line_opacity"]["yardstick_bound_ms"],
                 }
             del args, iw, prepared, full, parts, plain
     except Exception as exc:  # noqa: BLE001
@@ -1539,10 +1642,14 @@ def main():
             fplan.tracing_nus, fplan.line_data.nu,
             lk.line_center_indices(fplan.tracing_nus, fplan.line_data.nu),
             gamma.double().cpu().numpy(), doppler.double().cpu().numpy(), f_iw.cpu().numpy())
-        f_bound, f_by = line_bound(evals, 1, fplan.line_data.n_lines, len(fplan.temperatures),
-                                   FLAGSHIP_POINTS, 4)
+        f_shape = (1, fplan.line_data.n_lines, len(fplan.temperatures), FLAGSHIP_POINTS, 4)
+        f_bound, f_by = kernel1_bound(evals, *f_shape)
         log(f"flagship Kernel 1 in-window evaluations by Voigt region: {evals}; bound "
-            f"{f_bound:.3f} ms ({f_by}); line_opacity stage {timings['line_opacity'] * 1e3:.1f} ms")
+            f"{f_bound:.3f} ms ({f_by}; counted from the source), yardstick "
+            f"{line_bound(evals, *f_shape)[0]:.3f} ms; line_opacity stage "
+            f"{timings['line_opacity'] * 1e3:.1f} ms")
+        log_walk("flagship", lk.line_center_indices(fplan.tracing_nus, fplan.line_data.nu),
+                 f_iw.amax(dim=0).cpu().numpy(), FLAGSHIP_POINTS, evals)
         g_bound, g_by = line_grad_bound(evals, 1, fplan.line_data.n_lines,
                                         len(fplan.temperatures), FLAGSHIP_POINTS, 4)
         g_flag = torch.randn((1, len(fplan.temperatures), FLAGSHIP_POINTS), device=dev,
@@ -1579,6 +1686,9 @@ def main():
             worst, t_plain = 0.0, 0.0
             for a in starts:
                 kern = lk.line_opacity_range(kin, a, n_chk)
+                same = torch.equal(kern, lk.line_opacity_range(kin, a, n_chk))
+                if not same:
+                    failures.append(f"flagship Kernel 1 {dtype} range at {a}: two launches differ")
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 plain = lk.accumulate_line_opacity_plain(
@@ -1598,7 +1708,7 @@ def main():
             log(f"flagship Kernel 1 {str(dtype)[6:]} vs plain on {len(starts)} ranges: max "
                 + ("rel err" if dtype == torch.float64 else "row err / row max")
                 + f" {worst:.3e} (bound {1e-12 if dtype == torch.float64 else 1e-4:g}); "
-                f"plain {t_plain:.1f} s")
+                f"two launches equal bit for bit on each; plain {t_plain:.1f} s")
             del kern, plain
 
             # Kernel 1b at the flagship's shape: over the whole grid (timed,

@@ -127,6 +127,7 @@ class LineOpacityInputs:
     doppler: torch.Tensor
     iw: torch.Tensor  # int32, laid out as alpha
     iw_max: torch.Tensor | None  # [B, D] on a CUDA device, else None
+    step_min: float | None  # the grid's smallest step on a CUDA device, else None
     single: bool  # the caller passed one model without the B axis
 
 
@@ -141,15 +142,15 @@ def prepare_line_opacity(grid, line_nu, centers, alpha, gamma, doppler, iw,
     iw : integer half-windows, shaped as alpha (window_half_widths)
 
     On a CUDA device: dtypes, device and shapes, the sort order the
-    kernel's line search needs, and the depth-major [B, D, L] copies and
-    per-depth widest window; on the CPU, or with ``plain``, the inputs as
-    they are, for the plain version."""
+    kernel's line search needs, the depth-major [B, D, L] copies, the
+    per-depth widest window and the grid's smallest step; on the CPU, or
+    with ``plain``, the inputs as they are, for the plain version."""
     single = alpha.ndim == 2
     if single:
         alpha, gamma, doppler, iw = alpha[None], gamma[None], doppler[None], iw[None]
     if plain or grid.device.type == "cpu":
         return LineOpacityInputs(grid, line_nu, centers, alpha, gamma, doppler, iw,
-                                 None, single)
+                                 None, None, single)
     if grid.device.type != "cuda":
         raise ValueError(f"no line-opacity path for device {grid.device}")
     n_models, n_lines, n_depth = alpha.shape
@@ -174,10 +175,15 @@ def prepare_line_opacity(grid, line_nu, centers, alpha, gamma, doppler, iw,
     # depth-major [B, D, L] so a block's line chunk loads are coalesced
     iw_t = iw.to(torch.int32).transpose(1, 2).contiguous()
     iw_max = iw_t.amax(dim=2) if n_lines else iw_t.new_zeros((n_models, n_depth))
+    # bounds, in the kernel, the pixels around a line centre that can lie in
+    # the Voigt core (its core_guard)
+    step_min = float((grid[:-1] - grid[1:]).amin()) if grid.shape[0] > 1 else float("inf")
+    if not step_min > 0:
+        raise ValueError("line_opacity kernel: the grid must descend strictly")
     return LineOpacityInputs(
         grid.contiguous(), line_nu.contiguous(), centers,
         alpha.transpose(1, 2).contiguous(), gamma.transpose(1, 2).contiguous(),
-        doppler.transpose(1, 2).contiguous(), iw_t, iw_max.contiguous(), single,
+        doppler.transpose(1, 2).contiguous(), iw_t, iw_max.contiguous(), step_min, single,
     )
 
 
@@ -382,9 +388,8 @@ def accumulate_line_opacity_plain_backward(grad, grid, line_nu, centers, alpha, 
     return _line_grad_finish(s_w, s_y, s_d, alpha, doppler)
 
 
-_LINE_ARGS = (
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-)
+_LINE_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_double, ctypes.c_void_p] + [ctypes.c_int] * 5
+              + [ctypes.c_void_p])
 
 
 def accumulate_line_opacity_cuda(prepared, p_begin, n_out):
@@ -405,7 +410,7 @@ def accumulate_line_opacity_cuda(prepared, p_begin, n_out):
     p = _cuda.ptr
     status = fn(
         p(q.grid), p(q.line_nu), p(q.centers), p(q.alpha), p(q.gamma), p(q.doppler),
-        p(q.iw), p(q.iw_max), p(out), n_models, n_lines, n_depth, p_begin, n_out,
+        p(q.iw), p(q.iw_max), q.step_min, p(out), n_models, n_lines, n_depth, p_begin, n_out,
         _cuda.stream_ptr(q.grid.device),
     )
     if n_out == q.grid.shape[0]:

@@ -40,15 +40,38 @@ def _lines(dtype, device, n_lines=300, n_depth=13, n_nu=2000, seed=0):
             t(doppler), tlk.grid_min_step(nus))
 
 
+def _windows(kind, alpha, gamma, doppler, d_nu, n_nu, seed=3):
+    """Half-windows of one kind: "reference" (window_half_widths),
+    "grid-wide" (every window beyond the grid), "short" (1-3 pixels on half
+    the pairs, beyond the grid on the others)."""
+    if kind == "reference":
+        return tlk.window_half_widths(alpha, gamma, doppler, d_nu, n_nu)
+    rng = np.random.default_rng(seed)
+    iw = np.full(alpha.shape, n_nu + 1)
+    if kind == "short":
+        iw = np.where(rng.random(alpha.shape) < 0.5, rng.integers(1, 4, alpha.shape), iw)
+    return torch.as_tensor(iw, dtype=torch.int32, device=alpha.device)
+
+
+@pytest.mark.parametrize("windows", ["reference", "grid-wide", "short", "far wing"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_line_kernel_matches_plain(cuda, dtype):
+def test_line_kernel_matches_plain(cuda, dtype, windows):
+    """Kernel 1 against its plain version: reference windows, every window
+    beyond the grid, 1-3-pixel windows beside grid-wide ones, and the far
+    wing (Doppler widths / 1000, grid-wide windows: |x| to ~1e8); two
+    launches equal bit for bit."""
     grid, line_nu, centers, alpha, gamma, doppler, d_nu = _lines(dtype, cuda)
-    iw = tlk.window_half_widths(alpha, gamma, doppler, d_nu, grid.shape[0])
+    if windows == "far wing":
+        doppler = doppler * 1e-3
+    iw = _windows("grid-wide" if windows == "far wing" else windows, alpha, gamma, doppler,
+                  d_nu, grid.shape[0])
     before = tlk.accumulate_line_opacity_cuda.launches
-    ours = tlk.line_opacity_range(
-        tlk.prepare_line_opacity(grid, line_nu, centers, alpha, gamma, doppler, iw))
+    prepared = tlk.prepare_line_opacity(grid, line_nu, centers, alpha, gamma, doppler, iw)
+    ours = tlk.line_opacity_range(prepared)
+    again = tlk.line_opacity_range(prepared)
     torch.cuda.synchronize()
-    assert tlk.accumulate_line_opacity_cuda.launches == before + 1
+    assert tlk.accumulate_line_opacity_cuda.launches == before + 2
+    assert torch.equal(ours, again)
     plain = tlk.accumulate_line_opacity_plain(grid, line_nu, centers, alpha, gamma, doppler, iw)
     ours, plain = ours.double().cpu().numpy(), plain.double().cpu().numpy()
     if dtype == torch.float64:
@@ -60,10 +83,13 @@ def test_line_kernel_matches_plain(cuda, dtype):
 
 def test_line_kernel_rejects_unsorted_lines(cuda):
     grid, line_nu, centers, alpha, gamma, doppler, d_nu = _lines(torch.float32, cuda)
+    iw = tlk.window_half_widths(alpha, gamma, doppler, d_nu, grid.shape[0])
     with pytest.raises(ValueError, match="sorted"):
-        iw = tlk.window_half_widths(alpha, gamma, doppler, d_nu, grid.shape[0])
         tlk.prepare_line_opacity(grid, line_nu.flip(0), centers.flip(0), alpha, gamma,
                                  doppler, iw)
+    # the kernel's core guard needs a strictly descending grid
+    with pytest.raises(ValueError, match="descend"):
+        tlk.prepare_line_opacity(grid.flip(0), line_nu, centers, alpha, gamma, doppler, iw)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -150,17 +176,32 @@ def test_line_kernel_model_axis_matches_plain(cuda, dtype, mode):
         assert (err <= 1e-5 * np.abs(plain).max(axis=2)).all()
 
 
+@pytest.mark.parametrize("case", ["thirds", "inside a region-I span"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_range_launch_equals_full_launch_and_plain(cuda, dtype):
-    """Kernel 1 over K = 3 pixel ranges (the grid's 2000 pixels not
-    divisible by 3) equals the full launch bit for bit; in float64 each
-    range equals the plain range sum at 1e-12."""
+def test_range_launch_equals_full_launch_and_plain(cuda, dtype, case):
+    """Kernel 1 over K = 3 pixel ranges equals the full launch bit for bit;
+    in float64 each range equals the plain range sum at 1e-12.  "thirds":
+    reference windows, the grid's 2000 pixels not divisible by 3;
+    "inside a region-I span": grid-wide windows, the boundaries 45 and 301
+    pixels above a line's centre, inside its window and in its region I,
+    where no block's span starts in the full launch."""
     grid, line_nu, centers, alpha, gamma, doppler, d_nu = _lines(dtype, cuda)
-    iw = tlk.window_half_widths(alpha, gamma, doppler, d_nu, grid.shape[0])
+    n_nu = grid.shape[0]
+    if case == "thirds":
+        iw = _windows("reference", alpha, gamma, doppler, d_nu, n_nu)
+        bounds = [(0, 667), (667, 1334), (1334, 2000)]
+    else:
+        iw = _windows("grid-wide", alpha, gamma, doppler, d_nu, n_nu)
+        line = alpha.shape[0] // 3
+        cuts = (int(centers[line]) + 45, int(centers[line]) + 301)
+        assert all(0 < b < n_nu and b % 32 for b in cuts)
+        x = (grid[list(cuts)][:, None] - line_nu[line]) / doppler[line]  # [2, D]
+        y = gamma[line] / (tlk.SQRT_PI * tlk.PI) / doppler[line]
+        assert bool((x.abs() + y > 15).all())
+        bounds = [(0, cuts[0]), (cuts[0], cuts[1]), (cuts[1], n_nu)]
     prepared = tlk.prepare_line_opacity(grid, line_nu, centers, alpha, gamma, doppler, iw)
     full = tlk.line_opacity_range(prepared)
     before = tlk.accumulate_line_opacity_cuda.range_launches
-    bounds = [(0, 667), (667, 1334), (1334, 2000)]
     parts = [tlk.line_opacity_range(prepared, a, b - a) for a, b in bounds]
     torch.cuda.synchronize()
     assert tlk.accumulate_line_opacity_cuda.range_launches == before + 3
