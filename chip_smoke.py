@@ -26,7 +26,10 @@ Phases (any failure exits non-zero and prints no result):
      then on the far wing and the 1-3-pixel windows as Kernel 1, float64
      at 1e-12 and float32 at 1e-4 against the plain gradient in float64;
   4. Kernel 2 (formal solution) against its plain version at the full
-     Sim100AA shape (56 depths x 10k lambda x 20 theta), float32 and float64;
+     Sim100AA shape (56 depths x 10k lambda x 20 theta), float32 and float64,
+     F_nu and I_nu; F_nu of a launch that stores no intensity buffer equal
+     bit for bit to the tracked launch's, and two launches of each equal;
+     timed without and with I_nu stored;
      Kernel 2b (its backward) against autograd of raytrace_plain there,
      with and without a gradient on I_nu: float64 at 1e-9 of each
      frequency column's largest gradient, float32 within 1.5x the plain
@@ -45,7 +48,8 @@ Phases (any failure exits non-zero and prints no result):
      giant's own, and the same with each frequency column scaled so that
      the per-gap tau spans all three weight regimes (each regime's share
      is printed and must be at least 1 %): float64 at 1e-12, float32 at
-     1e-5; both timed on the giant's own; Kernel 2b's inward variant on
+     1e-5; the bit-for-bit checks of phase 4 on both sets; both timed on the
+     giant's own, without and with I_nu stored; Kernel 2b's inward variant on
      both sets, held as in phase 4;
   7. the spherical cool giant (Teff 4000 K, log g 2, R 2e12 cm) through
      run_stardis(device="cuda", dtype=float32): molecules, three file
@@ -94,7 +98,9 @@ Phases (any failure exits non-zero and prints no result):
      in-window evaluations, two launches equal bit for bit) and on the same
      ranges against its plain version (float64 at 1e-12, float32 at 1e-4 of
      each depth's largest gradient); and Kernel 2 on the whole [56, 1M] x 20
-     theta against its plain version (rtol 1e-5);
+     theta against its plain version (rtol 1e-5), with phase 4's bit-for-bit
+     checks, timed without and with I_nu stored, beside the unsegmented
+     run's peak memory;
  11. serving: SpectralService on Sim100AA answering Teff 5777, 6300 and
      9000 K, each against run_stardis (rtol 1e-5), warm per-request walls
      beside run_stardis's; the same requests through nu_segments=3 against
@@ -208,10 +214,18 @@ VOIGT_FLOPS = {"I": 25, "II": 39, "III": 87, "IV": 134}
 # one reciprocal per quotient (|x| + y, z^2 and the factor sqrt(pi): 8; then
 # 25, 73 or 118, the last two with their region test, exp and cos)
 KERNEL1_FLOPS = {"I": 12, "II": 38, "III": 86, "IV": 131}
-# operations of one depth step of one ray in Kernel 2, counted from
-# csrc/formal_solution.cu (tau 6, weights 8, the parabolic terms 17,
-# the recurrence 6); the inward sweep repeats it per gap
+# operations of one depth step of one ray with tau formed per ray (tau 6:
+# two logs, a sum, a product, an exp and the chord's product; weights 8; the
+# parabolic terms 17; the recurrence 6): Kernel 2b's recomputed step and
+# Kernel 2's first design, its yardstick (yardstick_bound_ms); the inward
+# sweep repeats it per gap
 TRACE_STEP_FLOPS = 37
+# the same, counted from csrc/formal_solution.cu as it is (Kernel 2's
+# bound_ms): tau 1 (m ray), weights 8, the parabolic terms 15 (one quotient
+# carried over negated), the recurrence 6; and per (gap, frequency) of a
+# model, the staged mean extinction (a log, a sum, a product, an exp)
+KERNEL2_STEP_FLOPS = 30
+KERNEL2_GAP_FLOPS = 4
 # operations of one in-window evaluation in Kernel 1b, counted from
 # csrc/line_opacity_grad.cu by Humlicek region (x, |x| + y, z^2 and the three
 # sums: 17; then the region's value-and-derivative chain), and of finishing
@@ -388,14 +402,20 @@ def kernel1_bound(evaluations, n_models, n_lines, n_depth, n_out, itemsize):
                  bytes_ms * 1e-3 * PEAK_BYTES_PER_S)
 
 
-def trace_bound(n_models, n_depth, n_nu, n_theta, itemsize, inward):
+def trace_bound(n_models, n_depth, n_nu, n_theta, itemsize, inward, tracked=False,
+                yardstick=False):
     """Kernel 2's bound: the depth steps of every ray (twice with the
-    inward sweep) and the theta sum, or reading alpha and source and
-    writing F_nu once."""
+    inward sweep), the staged mean extinction and the theta sum, or reading
+    alpha and source and writing F_nu (and I_nu when ``tracked``) once.
+    ``yardstick``: with the first design's step (TRACE_STEP_FLOPS, tau
+    per ray)."""
     rays = n_models * n_nu * n_theta
-    flops = rays * (n_depth - 1) * TRACE_STEP_FLOPS * (2 if inward else 1)
+    step = TRACE_STEP_FLOPS if yardstick else KERNEL2_STEP_FLOPS
+    flops = rays * (n_depth - 1) * step * (2 if inward else 1)
+    if not yardstick:
+        flops += n_models * (n_depth - 1) * n_nu * KERNEL2_GAP_FLOPS
     flops += 2 * n_models * n_depth * n_nu * n_theta
-    nbytes = 3 * n_models * n_depth * n_nu * itemsize
+    nbytes = (3 + (n_theta if tracked else 0)) * n_models * n_depth * n_nu * itemsize
     return bound(flops, nbytes)
 
 
@@ -608,6 +628,21 @@ def main():
         inside = sum(evals.values())
         log(f"kernel 1 walk at {label}: {walked:.4e} (pixel, depth, line) triples walked by "
             f"blocks of {span} pixels, {inside:.4e} in a window ({inside / walked:.1%})")
+
+    def check_trace_bits(label, args, kw, f_tracked, i_tracked):
+        """Kernel 2's F_nu untracked (no intensity buffer written) equal bit
+        for bit to the tracked launch's, and two launches of each equal."""
+        f_u = solver.raytrace(*args, **kw)[0]
+        f_u2 = solver.raytrace(*args, **kw)[0]
+        f_t2, i_t2 = solver.raytrace(*args, track_individual_intensities=True, **kw)
+        torch.cuda.synchronize()
+        same = {"tracked == untracked F_nu": torch.equal(f_u, f_tracked),
+                "two untracked launches": torch.equal(f_u, f_u2),
+                "two tracked launches": torch.equal(f_t2, f_tracked)
+                and torch.equal(i_t2, i_tracked)}
+        log(f"{label}: equal bit for bit: {same}")
+        if not all(same.values()):
+            failures.append(f"{label}: not equal bit for bit: {same}")
 
     def check_trace_grad(label, a, s, r, w, corr, inward, timed):
         """Kernel 2b against autograd of raytrace_plain on one model's
@@ -905,16 +940,24 @@ def main():
                 f"I_nu {rel_i:.3e} (bound {bound:g})")
             if not (rel <= bound and rel_i <= bound and bool((fk[~nz] == 0).all())):
                 failures.append(f"kernel 2 {name} rel err {rel:.3e} / {rel_i:.3e}")
+            check_trace_bits(f"kernel 2 {name} (Sim100AA)", (total, source, ray, w), {}, fk, ik)
             if dtype == torch.float32:
                 err = (fk - fp).abs().max().item()
                 ms = cuda_ms(torch, lambda: solver.raytrace(total, source, ray, w), 20)
+                tracked_ms = cuda_ms(torch, lambda: solver.raytrace(
+                    total, source, ray, w, track_individual_intensities=True), 20)
                 plain_ms = cuda_ms(torch, lambda: solver.raytrace_plain(total, source, ray, w), 5)
-                bound_ms, bound_by = trace_bound(1, *total.shape, len(plan.weights), 4, False)
-                log(f"kernel 2 f32 full slice: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                    f"max abs err {err:.3e}; bound {bound_ms:.4f} ms ({bound_by})")
+                shape = (1, *total.shape, len(plan.weights), 4, False)
+                bound_ms, bound_by = trace_bound(*shape)
+                yard_ms, _ = trace_bound(*shape, yardstick=True)
+                log(f"kernel 2 f32 full slice: kernel {ms:.4f} ms (I_nu stored: {tracked_ms:.4f} "
+                    f"ms, bound {trace_bound(*shape, tracked=True)[0]:.4f} ms), plain "
+                    f"{plain_ms:.3f} ms, max abs err {err:.3e}; bound {bound_ms:.4f} ms "
+                    f"({bound_by}), yardstick {yard_ms:.4f} ms")
                 report["formal_solution"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                              "bound_ms": bound_ms, "bound_by": bound_by,
-                                             "library_ms": None}
+                                             "library_ms": None, "tracked_ms": tracked_ms,
+                                             "yardstick_bound_ms": yard_ms}
     except Exception as exc:  # noqa: BLE001
         failures.append(f"kernel 2 phase: {exc!r}")
 
@@ -1110,16 +1153,22 @@ def main():
                 if not (rel <= bound and rel_i <= bound and f_zeros and i_zeros):
                     failures.append(f"kernel 2 inward {name} {label} rel err "
                                     f"{rel:.3e} / {rel_i:.3e}")
+                check_trace_bits(f"kernel 2 inward {name} ({label})", (a, s, r, w), kw, fk, ik)
                 if dtype == torch.float32:
                     f32_errs.append((fk - fp).abs().max().item())
                 if dtype == torch.float32 and label == "giant":
                     ms = cuda_ms(torch, lambda: solver.raytrace(a, s, r, w, **kw), 20)
+                    tracked_ms = cuda_ms(torch, lambda: solver.raytrace(
+                        a, s, r, w, track_individual_intensities=True, **kw), 20)
                     plain_ms = cuda_ms(
                         torch, lambda: solver.raytrace_plain(a, s, r, w, **kw), 5
                     )
-                    bound_ms, bound_by = trace_bound(1, *a.shape, len(gplan.weights), 4, True)
-                    log(f"kernel 2 inward f32 giant: kernel {ms:.3f} ms, "
-                        f"plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+                    shape = (1, *a.shape, len(gplan.weights), 4, True)
+                    bound_ms, bound_by = trace_bound(*shape)
+                    yard_ms, _ = trace_bound(*shape, yardstick=True)
+                    log(f"kernel 2 inward f32 giant: kernel {ms:.4f} ms (I_nu stored: "
+                        f"{tracked_ms:.4f} ms), plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms "
+                        f"({bound_by}), yardstick {yard_ms:.4f} ms")
                 entry = check_trace_grad(f"giant {label}", a, s, r, w, corr, True,
                                          label == "giant")
                 if entry:
@@ -1129,6 +1178,7 @@ def main():
         report["formal_solution_inward"] = {
             "max_abs_err": max(f32_errs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "tracked_ms": tracked_ms, "yardstick_bound_ms": yard_ms,
         }
     except Exception as exc:  # noqa: BLE001
         failures.append(f"inward sweep phase: {exc!r}")
@@ -1350,7 +1400,8 @@ def main():
         """util.memory's peak bytes of a run of this plan in k ranges."""
         n_seg = -(-len(mplan.tracing_nus) // k)
         return (mem.estimate_segment_bytes(n_seg, len(mplan.temperatures), len(mplan.weights),
-                                           mem.count_alpha_sources(mplan), 4)
+                                           mem.count_alpha_sources(mplan), 4,
+                                           tracked=bool(mplan.track_individual_intensities))
                 + mem.fixed_overhead_bytes(mplan, k, 4))
 
     def check_estimate(label, estimate, peak):
@@ -1563,7 +1614,7 @@ def main():
         k_auto = mem.choose_nu_segments(fplan, itemsize=4)
         log(f"flagship plan: {FLAGSHIP_POINTS} points x {fplan.line_data.n_lines} of {N_LINES} "
             f"lines; memory model: fixed {mem.fixed_overhead_bytes(fplan, 1, 4) / 1e9:.3f} GB + "
-            f"{mem.per_pixel_bytes(len(fplan.temperatures), len(fplan.weights), mem.count_alpha_sources(fplan), 4)} "
+            f"{mem.per_pixel_bytes(len(fplan.temperatures), len(fplan.weights), mem.count_alpha_sources(fplan), 4, tracked=False)} "
             f"B/pixel; free for this process {mem.device_bytes_limit() / 1e9:.2f} GB; "
             f"'auto' chooses K = {k_auto}")
 
@@ -1797,7 +1848,19 @@ def main():
             f"max rel err F_nu {worst_f:.3e}, I_nu {worst_i:.3e} (bound 1e-5)")
         if not (worst_f <= 1e-5 and worst_i <= 1e-5 and zeros_ok):
             failures.append(f"flagship Kernel 2 rel err {worst_f:.3e} / {worst_i:.3e}")
-        del state, quants, fplan, fconsts, total, source, f_k, i_k
+        check_trace_bits("flagship Kernel 2 f32", (total, source, ray, w), {}, f_k, i_k)
+        del i_k
+        f_ms = cuda_ms(torch, lambda: solver.raytrace(total, source, ray, w), 5)
+        f_tracked_ms = cuda_ms(torch, lambda: solver.raytrace(
+            total, source, ray, w, track_individual_intensities=True), 5)
+        shape = (1, *total.shape, len(fplan.weights), 4, False)
+        log(f"flagship Kernel 2 f32 (56 x {FLAGSHIP_POINTS} x {len(fplan.weights)}): kernel "
+            f"{f_ms:.3f} ms, I_nu stored {f_tracked_ms:.3f} ms; bound "
+            f"{trace_bound(*shape)[0]:.4f} ms ({trace_bound(*shape)[1]}), I_nu stored "
+            f"{trace_bound(*shape, tracked=True)[0]:.4f} ms, yardstick "
+            f"{trace_bound(*shape, yardstick=True)[0]:.4f} ms; the unsegmented run_stardis "
+            f"peaks at {peak_auto / 1e9:.4f} GB (K = {k_auto})")
+        del state, quants, fplan, fconsts, total, source, f_k
     except Exception as exc:  # noqa: BLE001
         failures.append(f"flagship phase: {exc!r}")
 

@@ -11,41 +11,59 @@
 //                       and, with inward_rays=True, the spherical inward
 //                       sweep of solver.py:98-134
 //   _linear_recurrence  I_{k+1} = a_k I_k + b_k, an associative scan on the
-//                       TPU; here a serial 55-step loop in registers
+//                       TPU; here a serial loop over depth in registers
 // and the vmapped model axis of stardis_tpu/parallel/batch.py:225.
 //
-// Design: pass 1 runs one thread per (model, nu, theta).  It reads the
-// [D, N] extinction and source columns of its model and nu, forms tau and
-// the weights gap by gap, runs the depth recurrence in registers and writes
-// I[b, d, nu, theta] ([B, D, N, T], the JAX layout of I_nus per model).
-// The spherical variant (INWARD) first runs the inward sweep
-// I[g] = a'_g I[g+1] + b'_g from the surface gap G-1 down to gap 0,
-// starting from 0; its result seeds the outward sweep.  At g = 0 the
-// reference wraps: tau[g-1] is tau[G-1] and source[g-1] is source[G], the
-// last element of the full source array.  Chords that miss inner shells
-// have ray distance 0, so tau = 0 there, and a gap whose tau[g] or tau[g-1]
-// is 0 passes the intensity through.  Each step sums (1 - w0) I + w0 S +
-// second + third in the reference's order.  The inward pass recomputes tau per
-// gap rather than keeping 55 values per thread.  Pass 2 runs one thread
-// per (model, depth, nu) and sums w_theta I in fixed theta order, times
-// the model's correction: deterministic, no atomics.
+// Design: one block owns a tile of F frequencies of one model and all T
+// angles, one thread per (frequency, angle), theta the fastest index.
+//  * What does not depend on theta is staged in shared memory once per
+//    block: the mean extinction of each gap, m[g][f] = exp(0.5 (ln a_{g+1}
+//    + ln a_g)) (the T threads of a frequency split its gaps; the same
+//    expression in the same order as compute_taus, so the same bits), the
+//    source S[d][f], the model's chords ray[g][t] and the theta weights.
+//    A step then forms tau = m[g][f] ray[g][t] with one product and keeps
+//    only the weights' exp and the divisions.
+//  * The spherical variant (INWARD) first runs the inward sweep
+//    I[g] = a'_g I[g+1] + b'_g from the surface gap G-1 down to gap 0,
+//    starting from 0; its result seeds the outward sweep.  At g = 0 the
+//    reference wraps: tau[g-1] is tau[G-1] and source[g-1] is source[G], the
+//    last element of the full source array.  Chords that miss inner shells
+//    have ray distance 0, so tau = 0 there, and a gap whose tau[g] or
+//    tau[g-1] is 0 passes the intensity through.
+//  * Each step sums (1 - w0) I + w0 S + second + third in the reference's
+//    order.  The third term's quotient (s_k - s_{k+1}) / safe(tau_k) is the
+//    exact negation of the previous step's (s_{k+1} - s_k) / safe(tau_k),
+//    so it is carried over negated (in the inward sweep likewise); nothing
+//    else is reused, so every value rounds as in the plain version.
+//  * The theta sum is fused: each thread writes its intensity at every
+//    depth to a shared buffer [CHUNK][F][T], and after one barrier per
+//    chunk of depths one thread per (depth, frequency) sums w_t I_t in
+//    theta order from 0 and writes F_nu = correction * sum.  The buffer is
+//    double-buffered, so the next chunk's steps overlap the sums.  A chunk
+//    of 8 depths keeps the buffer at 10 KB (float32, F = 8, T = 20), where
+//    [D][F][T] would hold 72 KB and cap the blocks an SM keeps in flight.
+//  * I[b, d, n, t] ([B, D, N, T], the JAX layout of I_nus per model, which
+//    Kernel 2b reads) is written only when the caller passes a buffer: when
+//    I_nu is tracked or a gradient will need it.  The store is coalesced:
+//    at one depth the block's threads write F T consecutive elements.
 //
 // Built with -fmad=false (_cuda.KERNEL_FLAGS): every product and sum rounds
 // on its own, in the plain version's order, so kernel and plain agree bit
 // for bit on I_nu where the weights cancel (w1 = w0 - tau e just above the
 // Taylor threshold) and where the gap-0 wrap divides by a small surface tau.
 //
-// What bounds it on the H100: little.  At 56 depths x 10k nu x 20 theta a
-// model is about 1e7 recurrence steps of ~40 flops plus two logs and an exp
-// (twice that with the inward sweep), and 2 x 45 MB of float32 I traffic
-// between the passes; the column reads of alpha and source are shared by
-// the theta threads of one nu and hit L1/L2.
+// What bounds it on the H100: the issue of each ray's serial steps.  At 56
+// depths x 10k nu x 20 theta a model is 1.1e7 steps (twice that with the
+// inward sweep) of one exp, five IEEE divisions and ~25 other operations;
+// the bytes (alpha and source read once, F_nu written once: 6.7 MB) take
+// 2 us at 3.35 TB/s, and 45 MB more when I_nu is stored.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 256;
+// the most threads (F T) a block may have; the wrapper raises beyond it
+constexpr int MAX_THREADS = 512;
 
 template <typename T>
 __device__ __forceinline__ T safe(T tau) { return tau == T(0) ? T(1) : tau; }
@@ -68,122 +86,173 @@ __device__ __forceinline__ void weights(T tau, T& w0, T& w1, T& w2) {
   }
 }
 
-// alpha: this model's [D, N]; ray: this model's [G, T]
-template <typename T>
-__device__ __forceinline__ T tau_of(const T* alpha, const T* ray, int g, int n,
-                                    int t, int n_nu, int n_theta) {
-  T la1 = log(alpha[(size_t)(g + 1) * n_nu + n]);
-  T la0 = log(alpha[(size_t)g * n_nu + n]);
-  return exp(T(0.5) * (la1 + la0)) * ray[g * n_theta + t];
+// elements of one block's shared memory: m [G][F], S [D][F], ray [G][T],
+// w [T] and the theta-sum buffer [2][chunk][F][T]
+__host__ __device__ inline size_t shared_elems(int n_depth, int n_theta, int tile,
+                                               int chunk) {
+  const size_t gaps = (size_t)(n_depth - 1);
+  return gaps * tile + (size_t)n_depth * tile + gaps * n_theta + n_theta +
+         2 * (size_t)chunk * tile * n_theta;
 }
 
-// Intensity at gap 0 after the inward sweep of one (model, nu, theta) ray.
-template <typename T>
-__device__ T inward_sweep(const T* alpha, const T* source, const T* ray, int n,
-                          int t, int n_gaps, int n_nu, int n_theta) {
-  const T tau_top = tau_of(alpha, ray, n_gaps - 1, n, t, n_nu, n_theta);
-  T tau_g = tau_top;
-  T I = T(0);
-  for (int g = n_gaps - 1; g >= 0; --g) {
-    const T tau_gm1 = g > 0 ? tau_of(alpha, ray, g - 1, n, t, n_nu, n_theta) : tau_top;
-    const T s_g = source[(size_t)g * n_nu + n];
-    const T s_gp1 = source[(size_t)(g + 1) * n_nu + n];
-    const T s_gm1 = source[(size_t)(g > 0 ? g - 1 : n_gaps) * n_nu + n];
-    T w0, w1, w2;
-    weights(tau_g, w0, w1, w2);
-    const T denom = safe(tau_g + tau_gm1);
-    const T second = w1 * ((s_g - s_gm1) * (tau_g / safe(tau_gm1)) -
-                           (s_g - s_gp1) * (tau_gm1 / safe(tau_g))) / denom;
-    const T third = w2 * ((s_gm1 - s_g) / safe(tau_gm1) +
-                          (s_gp1 - s_g) / safe(tau_g)) / denom;
-    if (tau_g != T(0) && tau_gm1 != T(0)) I = (T(1) - w0) * I + w0 * s_g + second + third;
-    tau_g = tau_gm1;
-  }
-  return I;
-}
-
+// grid (tiles of `tile` frequencies, models), block tile * n_theta threads
 template <typename T, bool INWARD>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(MAX_THREADS)
 trace_kernel(const T* __restrict__ alpha_all, const T* __restrict__ source_all,
-             const T* __restrict__ ray_all, T* __restrict__ intensity_all,
-             int n_models, int n_depth, int n_nu, int n_theta) {
-  const long long rays = (long long)n_nu * n_theta;  // rays of one model
-  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= rays * n_models) return;
-  const int b = (int)(gid / rays);
-  const long long idx = gid - (long long)b * rays;
-  const int n = (int)(idx / n_theta);
-  const int t = (int)(idx % n_theta);
+             const T* __restrict__ ray_all, const T* __restrict__ w_all,
+             const T* __restrict__ correction, T* __restrict__ intensity_all,
+             T* __restrict__ f_nu_all, int n_depth, int n_nu, int n_theta, int tile,
+             int chunk) {
+  extern __shared__ __align__(16) unsigned char shared_raw[];
   const int n_gaps = n_depth - 1;
+  const int threads = tile * n_theta;
+  const int tid = threadIdx.x;
+  const int f = tid / n_theta;
+  const int t = tid - f * n_theta;
+  const int b = blockIdx.y;
+  const int n0 = blockIdx.x * tile;
+  const int n = n0 + f;
+  const bool valid = n < n_nu;
+  // a thread past the grid's edge runs the last column and writes nothing
+  const int nc = valid ? n : n_nu - 1;
   const size_t cells = (size_t)n_depth * n_nu;
   const T* alpha = alpha_all + b * cells;
   const T* source = source_all + b * cells;
-  const T* ray = ray_all + (size_t)b * n_gaps * n_theta;
-  T* intensity = intensity_all + b * cells * n_theta;
-  const size_t plane = (size_t)rays;  // one depth of intensity
 
-  T I = INWARD ? inward_sweep(alpha, source, ray, n, t, n_gaps, n_nu, n_theta) : T(0);
-  intensity[idx] = I;
-  T tau_k = tau_of(alpha, ray, 0, n, t, n_nu, n_theta);
-  T s_k = source[n];
-  T s_kp1 = source[(size_t)n_nu + n];
-  for (int k = 0; k < n_gaps - 1; ++k) {
-    const T tau_kp1 = tau_of(alpha, ray, k + 1, n, t, n_nu, n_theta);
-    const T s_kp2 = source[(size_t)(k + 2) * n_nu + n];
-    T w0, w1, w2;
-    weights(tau_k, w0, w1, w2);
-    const T denom = safe(tau_k + tau_kp1);
-    const T second = w1 * ((s_kp1 - s_kp2) * (tau_k / safe(tau_kp1)) -
-                           (s_kp1 - s_k) * (tau_kp1 / safe(tau_k))) / denom;
-    const T third = w2 * ((s_kp2 - s_kp1) / safe(tau_kp1) +
-                          (s_k - s_kp1) / safe(tau_k)) / denom;
-    if (tau_k != T(0)) I = (T(1) - w0) * I + w0 * s_kp1 + second + third;
-    intensity[(size_t)(k + 1) * plane + idx] = I;
-    tau_k = tau_kp1;
-    s_k = s_kp1;
-    s_kp1 = s_kp2;
+  T* m = reinterpret_cast<T*>(shared_raw);
+  T* s = m + (size_t)n_gaps * tile;
+  T* ray = s + (size_t)n_depth * tile;
+  T* w = ray + (size_t)n_gaps * n_theta;
+  T* buf = w + n_theta;
+
+  // --- staging: the T threads of a frequency split its gaps --------------
+  {
+    const int per = (n_gaps + n_theta - 1) / n_theta;
+    const int g0 = t * per;
+    const int g1 = min(g0 + per, n_gaps);
+    if (g0 < g1) {
+      T la0 = log(alpha[(size_t)g0 * n_nu + nc]);
+      for (int g = g0; g < g1; ++g) {
+        const T la1 = log(alpha[(size_t)(g + 1) * n_nu + nc]);
+        m[g * tile + f] = exp(T(0.5) * (la1 + la0));
+        la0 = la1;
+      }
+    }
   }
-  // last gap: constant-source boundary jump
-  T w0, w1, w2;
-  weights(tau_k, w0, w1, w2);
-  const T st = safe(tau_k);
-  const T third = w2 * (s_k - s_kp1) / (st * st);
-  if (tau_k != T(0)) I = (T(1) - w0) * I + w0 * s_kp1 + third;
-  intensity[(size_t)n_gaps * plane + idx] = I;
-}
+  for (int i = tid; i < n_depth * tile; i += threads) {
+    const int d = i / tile;
+    s[i] = source[(size_t)d * n_nu + min(n0 + (i - d * tile), n_nu - 1)];
+  }
+  for (int i = tid; i < n_gaps * n_theta; i += threads)
+    ray[i] = ray_all[(size_t)b * n_gaps * n_theta + i];
+  for (int i = tid; i < n_theta; i += threads) w[i] = w_all[i];
+  __syncthreads();
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-flux_kernel(const T* __restrict__ intensity, const T* __restrict__ w,
-            const T* __restrict__ correction, T* __restrict__ f_nu,
-            long long cells_per_model, long long n_cells, int n_theta) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n_cells) return;
-  const T* row = intensity + idx * n_theta;
-  T f = T(0);
-  for (int t = 0; t < n_theta; ++t) f += w[t] * row[t];
-  f_nu[idx] = f * correction[idx / cells_per_model];
+  const T* m_f = m + f;
+  const T* s_f = s + f;
+  const T* ray_t = ray + t;
+  auto tau = [&](int g) { return m_f[g * tile] * ray_t[g * n_theta]; };
+  auto src = [&](int d) { return s_f[d * tile]; };
+
+  // --- inward sweep (spherical) ------------------------------------------
+  T I = T(0);
+  if (INWARD) {
+    const T tau_top = tau(n_gaps - 1);
+    T tau_g = tau_top;
+    // (s_gp1 - s_g) / safe(tau_g) of the surface gap
+    T q_g = (src(n_gaps) - src(n_gaps - 1)) / safe(tau_g);
+    for (int g = n_gaps - 1; g >= 0; --g) {
+      const T tau_gm1 = g > 0 ? tau(g - 1) : tau_top;
+      const T s_g = src(g);
+      const T s_gp1 = src(g + 1);
+      const T s_gm1 = src(g > 0 ? g - 1 : n_gaps);
+      T w0, w1, w2;
+      weights(tau_g, w0, w1, w2);
+      const T denom = safe(tau_g + tau_gm1);
+      const T second = w1 * ((s_g - s_gm1) * (tau_g / safe(tau_gm1)) -
+                             (s_g - s_gp1) * (tau_gm1 / safe(tau_g))) / denom;
+      const T q_gm1 = (s_gm1 - s_g) / safe(tau_gm1);
+      const T third = w2 * (q_gm1 + q_g) / denom;
+      if (tau_g != T(0) && tau_gm1 != T(0)) I = (T(1) - w0) * I + w0 * s_g + second + third;
+      tau_g = tau_gm1;
+      q_g = -q_gm1;
+    }
+  }
+
+  // --- outward sweep, theta sum per chunk of depths -----------------------
+  const T corr = correction[b];
+  T* intensity = intensity_all == nullptr
+                     ? nullptr
+                     : intensity_all + b * cells * n_theta + (size_t)n * n_theta + t;
+  const size_t plane = (size_t)n_nu * n_theta;  // one depth of intensity
+  T* f_nu = f_nu_all + b * cells;
+  T tau_k = tau(0);
+  T s_k = src(0);
+  T s_kp1 = src(1);
+  // (s_k - s_kp1) / safe(tau_k): the third term's second quotient
+  T q_k = (s_k - s_kp1) / safe(tau_k);
+  for (int d0 = 0, half = 0; d0 < n_depth; d0 += chunk, half ^= 1) {
+    T* part = buf + (size_t)half * chunk * threads;
+    const int d1 = min(d0 + chunk, n_depth);
+    for (int d = d0; d < d1; ++d) {
+      if (d > 0 && d < n_gaps) {  // interior gap k = d - 1
+        const T tau_kp1 = tau(d);
+        const T s_kp2 = src(d + 1);
+        T w0, w1, w2;
+        weights(tau_k, w0, w1, w2);
+        const T denom = safe(tau_k + tau_kp1);
+        const T second = w1 * ((s_kp1 - s_kp2) * (tau_k / safe(tau_kp1)) -
+                               (s_kp1 - s_k) * (tau_kp1 / safe(tau_k))) / denom;
+        const T q_kp1 = (s_kp2 - s_kp1) / safe(tau_kp1);
+        const T third = w2 * (q_kp1 + q_k) / denom;
+        if (tau_k != T(0)) I = (T(1) - w0) * I + w0 * s_kp1 + second + third;
+        tau_k = tau_kp1;
+        s_k = s_kp1;
+        s_kp1 = s_kp2;
+        q_k = -q_kp1;
+      } else if (d > 0) {  // last gap: constant-source boundary jump
+        T w0, w1, w2;
+        weights(tau_k, w0, w1, w2);
+        const T st = safe(tau_k);
+        const T third = w2 * (s_k - s_kp1) / (st * st);
+        if (tau_k != T(0)) I = (T(1) - w0) * I + w0 * s_kp1 + third;
+      }
+      part[(d - d0) * threads + tid] = I;
+      if (intensity != nullptr && valid) intensity[(size_t)d * plane] = I;
+    }
+    __syncthreads();
+    for (int i = tid; i < (d1 - d0) * tile; i += threads) {
+      const int dd = i / tile;
+      const int ff = i - dd * tile;
+      if (n0 + ff < n_nu) {
+        const T* row = part + dd * threads + ff * n_theta;
+        T sum = T(0);
+        for (int tt = 0; tt < n_theta; ++tt) sum += w[tt] * row[tt];
+        f_nu[(size_t)(d0 + dd) * n_nu + n0 + ff] = sum * corr;
+      }
+    }
+  }
 }
 
 template <typename T>
 int launch(const T* alpha, const T* source, const T* ray, const T* w,
            const T* correction, T* intensity, T* f_nu, int n_models,
-           int n_depth, int n_nu, int n_theta, int inward, cudaStream_t stream) {
-  const long long rays = (long long)n_models * n_nu * n_theta;
-  const unsigned trace_blocks = (unsigned)((rays + THREADS - 1) / THREADS);
-  if (inward) {
-    trace_kernel<T, true><<<trace_blocks, THREADS, 0, stream>>>(
-        alpha, source, ray, intensity, n_models, n_depth, n_nu, n_theta);
-  } else {
-    trace_kernel<T, false><<<trace_blocks, THREADS, 0, stream>>>(
-        alpha, source, ray, intensity, n_models, n_depth, n_nu, n_theta);
+           int n_depth, int n_nu, int n_theta, int tile, int chunk, int inward,
+           cudaStream_t stream) {
+  const int threads = tile * n_theta;
+  if (tile < 1 || chunk < 1 || n_depth < 2 || threads > MAX_THREADS)
+    return (int)cudaErrorInvalidValue;
+  const size_t shared = shared_elems(n_depth, n_theta, tile, chunk) * sizeof(T);
+  auto kernel = inward ? trace_kernel<T, true> : trace_kernel<T, false>;
+  if (shared > 48 * 1024) {  // above 48 KB only by the kernel's own opt-in
+    const int status = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+    if (status) return status;
   }
-  int status = (int)cudaGetLastError();
-  if (status) return status;
-  const long long per_model = (long long)n_depth * n_nu;
-  const long long cells = per_model * n_models;
-  flux_kernel<T><<<(unsigned)((cells + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
-      intensity, w, correction, f_nu, per_model, cells, n_theta);
+  const dim3 grid((unsigned)((n_nu + tile - 1) / tile), (unsigned)n_models);
+  kernel<<<grid, threads, shared, stream>>>(alpha, source, ray, w, correction,
+                                            intensity, f_nu, n_depth, n_nu,
+                                            n_theta, tile, chunk);
   return (int)cudaGetLastError();
 }
 
@@ -191,16 +260,17 @@ int launch(const T* alpha, const T* source, const T* ray, const T* w,
 
 // alpha, source: [n_models, n_depth, n_nu]; ray: [n_models, n_depth - 1,
 // n_theta]; w: [n_theta]; correction: [n_models]; intensity: [n_models,
-// n_depth, n_nu, n_theta] (output, also the pass-1 buffer); f_nu:
-// [n_models, n_depth, n_nu]; inward: 1 for spherical models.
+// n_depth, n_nu, n_theta] or null (not written); f_nu: [n_models, n_depth,
+// n_nu]; tile: frequencies per block; chunk: depths per theta sum; inward:
+// 1 for spherical models.
 extern "C" int formal_solution_f32(const float* alpha, const float* source,
                                    const float* ray, const float* w,
                                    const float* correction, float* intensity,
                                    float* f_nu, int n_models, int n_depth,
-                                   int n_nu, int n_theta, int inward,
-                                   void* stream) {
+                                   int n_nu, int n_theta, int tile, int chunk,
+                                   int inward, void* stream) {
   return launch<float>(alpha, source, ray, w, correction, intensity, f_nu,
-                       n_models, n_depth, n_nu, n_theta, inward,
+                       n_models, n_depth, n_nu, n_theta, tile, chunk, inward,
                        (cudaStream_t)stream);
 }
 
@@ -208,11 +278,18 @@ extern "C" int formal_solution_f64(const double* alpha, const double* source,
                                    const double* ray, const double* w,
                                    const double* correction, double* intensity,
                                    double* f_nu, int n_models, int n_depth,
-                                   int n_nu, int n_theta, int inward,
-                                   void* stream) {
+                                   int n_nu, int n_theta, int tile, int chunk,
+                                   int inward, void* stream) {
   return launch<double>(alpha, source, ray, w, correction, intensity, f_nu,
-                        n_models, n_depth, n_nu, n_theta, inward,
+                        n_models, n_depth, n_nu, n_theta, tile, chunk, inward,
                         (cudaStream_t)stream);
+}
+
+// dynamic shared bytes of one block (the wrapper's check reads the same
+// layout)
+extern "C" long long formal_solution_shared_bytes(int n_depth, int n_theta, int tile,
+                                                  int chunk, int itemsize) {
+  return (long long)(shared_elems(n_depth, n_theta, tile, chunk) * itemsize);
 }
 
 extern "C" const char* formal_solution_error_string(int status) {

@@ -14,7 +14,9 @@ as in ``stardis_tpu/radiation_field/solver.py``:
   JAX package runs it as an associative scan (a TPU way to parallelise a
   serial loop); here the plain version is a Python loop over depth and the
   kernel (csrc/formal_solution.cu) a serial loop per (model, nu, theta)
-  thread.
+  thread, a block holding a tile of frequencies and all their angles,
+  with the theta-invariant mean extinction and source staged once per
+  tile and the theta sum fused.
 
 Every function takes a leading model axis: alphas and source [B, D, N],
 ray distances [B, G, T], one correction per model.  ``raytrace`` also
@@ -283,7 +285,35 @@ def raytrace_plain_backward(alphas, source, ray_distances, weights, g_flux, g_in
                                    allow_unused=True, materialize_grads=True)
 
 
-_TRACE_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_TRACE_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+#: Kernel 2's block: TRACE_THREADS // T frequencies of T angles, at most
+#: TRACE_MAX_TILE frequencies and at most TRACE_MAX_THREADS threads (the
+#: kernel's __launch_bounds__); its theta sum runs per TRACE_CHUNK depths;
+#: its shared memory may reach the H100's per-block opt-in limit
+TRACE_THREADS = 160
+TRACE_MAX_TILE = 32
+TRACE_MAX_THREADS = 512
+TRACE_CHUNK = 8
+TRACE_MAX_SHARED = 232_448
+
+
+def trace_tile(n_depth, n_theta, itemsize):
+    """(frequencies per block, dynamic shared bytes) of Kernel 2's launch
+    for D depths and T angles; raises ValueError where one block cannot
+    hold T angles.  The bytes are csrc/formal_solution.cu's layout: the
+    gaps' mean extinction [G][F], the source [D][F], the chords [G][T],
+    the weights [T] and the double-buffered theta-sum chunks
+    [2][TRACE_CHUNK][F][T]."""
+    tile = max(1, min(TRACE_MAX_TILE, TRACE_THREADS // n_theta))
+    n_gaps = n_depth - 1
+    shared = itemsize * (n_gaps * tile + n_depth * tile + n_gaps * n_theta + n_theta
+                         + 2 * TRACE_CHUNK * tile * n_theta)
+    if tile * n_theta > TRACE_MAX_THREADS or shared > TRACE_MAX_SHARED:
+        raise ValueError(
+            f"formal_solution kernel: {n_theta} angles at {n_depth} depths need "
+            f"{tile * n_theta} threads and {shared} B of shared memory per block "
+            f"(at most {TRACE_MAX_THREADS} and {TRACE_MAX_SHARED})")
+    return tile, shared
 
 
 def raytrace_cuda(alphas, source, ray_distances, weights, inward_rays=False,
@@ -295,22 +325,29 @@ def raytrace_cuda(alphas, source, ray_distances, weights, inward_rays=False,
 
     Differentiable in alphas and source (and through F_nu and the tracked
     I_nus): the backward is Kernel 2b (csrc/formal_solution_grad.cu),
-    which reads the forward's saved intensity buffer.  Ray distances,
-    weights and the corrections are constants of the plan."""
+    which reads the forward's saved intensity buffer [B, D, N, T].  The
+    kernel writes that buffer only when it is read: when I_nus is tracked
+    or autograd records a gradient of alphas or source; otherwise nothing
+    of that size is allocated.  Ray distances, weights and the corrections
+    are constants of the plan."""
     n_models = alphas.shape[0]
     if any(t.requires_grad for t in (ray_distances, weights)) or (
             torch.is_tensor(photospheric_correction)
             and photospheric_correction.requires_grad):
         raise ValueError("formal_solution kernel: only alphas and source are differentiable")
     correction = _corrections(photospheric_correction, n_models, alphas).contiguous()
+    track = bool(track_individual_intensities)
+    store = track or (torch.is_grad_enabled()
+                      and (alphas.requires_grad or source.requires_grad))
     f_nu, intensity = _Raytrace.apply(alphas, source, ray_distances, weights, correction,
-                                      bool(inward_rays))
-    return f_nu, (intensity if track_individual_intensities else None)
+                                      bool(inward_rays), track, store)
+    return f_nu, (intensity if track else None)
 
 
-def _launch_trace(alphas, source, ray_distances, weights, correction, inward_rays):
-    """Kernel 2's launch on contiguous tensors: F_nu [B, D, N] and its
-    pass-1 intensity buffer [B, D, N, T] (the I_nus output when tracked)."""
+def _launch_trace(alphas, source, ray_distances, weights, correction, inward_rays, store):
+    """Kernel 2's launch on contiguous tensors: F_nu [B, D, N] and, when
+    ``store``, the intensity buffer [B, D, N, T] (the I_nus output when
+    tracked, Kernel 2b's input), else None."""
     n_models, n_depth, n_nu = alphas.shape
     dtype = alphas.dtype
     tensors = (alphas, source, ray_distances, weights, correction)
@@ -327,15 +364,17 @@ def _launch_trace(alphas, source, ray_distances, weights, correction, inward_ray
         raise ValueError("formal_solution kernel: ray_distances must be [B, D - 1, T]")
     if correction.shape != (n_models,):
         raise ValueError("formal_solution kernel: one photospheric correction per model")
-    intensity = torch.empty((n_models, n_depth, n_nu, n_theta), dtype=dtype,
-                            device=alphas.device)
+    tile, _ = trace_tile(n_depth, n_theta, alphas.element_size())
+    intensity = (torch.empty((n_models, n_depth, n_nu, n_theta), dtype=dtype,
+                             device=alphas.device) if store else None)
     f_nu = torch.empty((n_models, n_depth, n_nu), dtype=dtype, device=alphas.device)
     suffix = "f32" if dtype == torch.float32 else "f64"
     fn = _cuda.bind("formal_solution", f"formal_solution_{suffix}", _TRACE_ARGS)
     p = _cuda.ptr
     status = fn(
         p(alphas), p(source), p(ray_distances), p(weights), p(correction),
-        p(intensity), p(f_nu), n_models, n_depth, n_nu, n_theta, int(bool(inward_rays)),
+        ctypes.c_void_p(None) if intensity is None else p(intensity), p(f_nu),
+        n_models, n_depth, n_nu, n_theta, tile, TRACE_CHUNK, int(bool(inward_rays)),
         _cuda.stream_ptr(alphas.device),
     )
     if inward_rays:
@@ -347,14 +386,21 @@ def _launch_trace(alphas, source, ray_distances, weights, correction, inward_ray
 
 
 class _Raytrace(torch.autograd.Function):
-    """Kernel 2 forward, Kernel 2b backward; saves the intensity buffer."""
+    """Kernel 2 forward, Kernel 2b backward.  The second output is the
+    intensity buffer, saved for Kernel 2b, when ``store``; else an empty
+    tensor.  Untracked, it is marked non-differentiable."""
 
     @staticmethod
-    def forward(ctx, alphas, source, ray_distances, weights, correction, inward_rays):
+    def forward(ctx, alphas, source, ray_distances, weights, correction, inward_rays, track,
+                store):
         alphas, source, ray_distances, weights = (
             t.contiguous() for t in (alphas, source, ray_distances, weights))
         f_nu, intensity = _launch_trace(alphas, source, ray_distances, weights, correction,
-                                        inward_rays)
+                                        inward_rays, store)
+        if intensity is None:
+            intensity = alphas.new_empty(0)
+        if not track:
+            ctx.mark_non_differentiable(intensity)
         ctx.save_for_backward(alphas, source, ray_distances, weights, correction, intensity)
         ctx.inward_rays = inward_rays
         ctx.set_materialize_grads(False)
@@ -363,7 +409,7 @@ class _Raytrace(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_flux, g_intensity):
         grads = raytrace_grad_cuda(*ctx.saved_tensors, g_flux, g_intensity, ctx.inward_rays)
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None, None)
 
 
 _TRACE_GRAD_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]

@@ -8,15 +8,15 @@ peak, which is Kernel 2's launch, these [D, n] arrays at once:
 * one per opacity source in the opacities dict (each continuum source,
   each line set's sum; ``count_alpha_sources``),
 * their total, the blackbody source and F_nu,
-* Kernel 2's intensity buffer [D, n, T], allocated on every launch (it
-  is I_nu when tracked).
+* when I_nu is tracked, Kernel 2's intensity buffer [D, n, T] (I_nu
+  itself); an untracked forward launch allocates no such buffer.
 
 Each segment-independent array is counted once (``fixed_overhead_bytes``):
 stage 1's per-(line, depth) alpha, gamma and doppler, Kernel 1's
 depth-major copies of them and its integer windows, and, when the grid
 runs in K > 1 segments, the preallocated F_nu [D, N] (and I_nu
 [D, N, T] when tracked) that the segments are written into; with K = 1
-the range's own F_nu and intensity buffer are the output.
+the range's own F_nu (and intensity buffer) are the output.
 
 The model errs high: ``chip_smoke.py`` phases 9 and 10 measure the peak
 of ``run_stardis`` on the card (``torch.cuda.max_memory_allocated``)
@@ -28,9 +28,10 @@ it for the smallest K whose footprint fits.  There is no retry on an
 out-of-memory error: a budget too small for one pixel returns K = 1 and
 the device reports the failure.
 
-The model covers forward-only runs.  Under autograd every range keeps its
-saved tensors until the backward, and the backward adds Kernel 2b's
-buffers, so segments do not bound the peak; ``chip_smoke.py`` phase 13
+The model covers forward-only runs.  A differentiated run still holds
+Kernel 2's [D, n, T] intensity buffer, tracked or not (Kernel 2b reads
+it), every range keeps its saved tensors until the backward, and the
+backward adds Kernel 2b's buffers, so segments do not bound the peak; ``chip_smoke.py`` phase 13
 measures a differentiated segmented run's peak beside this estimate.
 """
 
@@ -71,16 +72,21 @@ def device_bytes_limit(device=None):
 
 
 def per_pixel_bytes(n_depth: int, n_thetas: int, n_alpha_sources: int,
-                    itemsize: int = 4) -> int:
-    """Device bytes per wavelength pixel of a pixel range at its peak."""
-    return int(n_depth * (n_alpha_sources + RANGE_ARRAYS + n_thetas) * itemsize)
+                    itemsize: int = 4, *, tracked: bool) -> int:
+    """Device bytes per wavelength pixel of a pixel range at its peak of a
+    forward run; the T intensity planes count only when I_nu is
+    ``tracked``."""
+    planes = n_alpha_sources + RANGE_ARRAYS + (n_thetas if tracked else 0)
+    return int(n_depth * planes * itemsize)
 
 
 def estimate_segment_bytes(n_nu_seg: int, n_depth: int, n_thetas: int,
-                           n_alpha_sources: int, itemsize: int = 4) -> int:
+                           n_alpha_sources: int, itemsize: int = 4, *,
+                           tracked: bool) -> int:
     """Peak device bytes of one ``n_nu_seg``-pixel range, without the
     segment-independent arrays (``fixed_overhead_bytes``)."""
-    return per_pixel_bytes(n_depth, n_thetas, n_alpha_sources, itemsize) * int(n_nu_seg)
+    return per_pixel_bytes(n_depth, n_thetas, n_alpha_sources, itemsize,
+                           tracked=tracked) * int(n_nu_seg)
 
 
 def count_alpha_sources(plan) -> int:
@@ -126,7 +132,8 @@ def choose_nu_segments(plan, bytes_limit: int | None = None, itemsize: int = 4,
     budget = HEADROOM * bytes_limit
     n_nu = len(plan.tracing_nus)
     per_px = per_pixel_bytes(len(plan.temperatures), len(plan.weights),
-                             count_alpha_sources(plan), itemsize)
+                             count_alpha_sources(plan), itemsize,
+                             tracked=bool(plan.track_individual_intensities))
     if fixed_overhead_bytes(plan, 1, itemsize) + per_px * n_nu <= budget:
         return 1
     avail = budget - fixed_overhead_bytes(plan, 2, itemsize)

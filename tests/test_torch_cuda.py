@@ -4,6 +4,7 @@ them (a CUDA kernel has no CPU mode).  Run them on a GPU machine with
 ``python -m pytest tests/test_torch_cuda.py``; chip_smoke.py makes the same
 comparisons at the slice's full shapes."""
 
+import ctypes
 import os
 import shutil
 
@@ -148,6 +149,56 @@ def test_formal_solution_inward_and_model_axis_match_plain(cuda, dtype):
         fb, _ = tsolver.raytrace(args[0][b], args[1][b], args[2][b], args[3],
                                  inward_rays=True, photospheric_correction=float(corr[b]))
         torch.testing.assert_close(f[b], fb, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("spherical", [False, True], ids=["plane", "spherical"])
+def test_formal_solution_untracked_equals_tracked(cuda, dtype, spherical):
+    """Kernel 2 writes the [B, D, N, T] intensity buffer only when it is
+    read: tracked and untracked F_nu are equal bit for bit, two launches
+    too, and an untracked launch under no_grad raises the peak by less than
+    one such buffer (F_nu alone is a T-th of it)."""
+    if spherical:
+        alphas, source, ray, corr, weights = _spherical_atmosphere(2, 56, 2000, 20, seed=4)
+    else:
+        alphas, source, ray, corr, weights = _plane_atmosphere()
+    args = [torch.as_tensor(a, device=cuda).to(dtype) for a in (alphas, source, ray, weights)]
+    kw = {"inward_rays": spherical, "photospheric_correction": corr}
+    f_t, i_t = tsolver.raytrace(*args, track_individual_intensities=True, **kw)
+    f_u, i_u = tsolver.raytrace(*args, **kw)
+    f_again, _ = tsolver.raytrace(*args, **kw)
+    torch.cuda.synchronize()
+    assert i_u is None and torch.equal(f_t, f_u) and torch.equal(f_u, f_again)
+    a = args[0].clone().requires_grad_()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        f_n, _ = tsolver.raytrace(a, *args[1:], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(f_n, f_u)
+    assert torch.cuda.max_memory_allocated() - base < i_t.numel() * i_t.element_size()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_formal_solution_rejects_too_many_angles(cuda, dtype):
+    """A T no block can hold raises before any launch; the kernel's own
+    shared-memory layout is the wrapper's."""
+    before = tsolver.raytrace_cuda.launches
+    n = tsolver.TRACE_MAX_THREADS + 1
+    alphas = torch.ones((1, 4, 16), dtype=dtype, device=cuda)
+    ray = torch.ones((1, 3, n), dtype=dtype, device=cuda)
+    with pytest.raises(ValueError, match="formal_solution kernel"):
+        tsolver.raytrace(alphas, alphas, ray, torch.ones(n, dtype=dtype, device=cuda))
+    assert tsolver.raytrace_cuda.launches == before
+    from stardis_tpu_torch import _cuda
+
+    shared = _cuda.load("formal_solution").formal_solution_shared_bytes
+    shared.restype = ctypes.c_longlong
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    for n_depth, n_theta in ((56, 20), (13, 3), (2, 1), (56, 100)):
+        tile, nbytes = tsolver.trace_tile(n_depth, n_theta, itemsize)
+        assert shared(n_depth, n_theta, tile, tsolver.TRACE_CHUNK, itemsize) == nbytes
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])

@@ -42,7 +42,8 @@ def _fake_plan(n_nu=1000, n_depth=56, n_thetas=20, n_lines=0, track=False):
 
 def _per_px(plan):
     return mem.per_pixel_bytes(len(plan.temperatures), len(plan.weights),
-                               mem.count_alpha_sources(plan))
+                               mem.count_alpha_sources(plan),
+                               tracked=plan.track_individual_intensities)
 
 
 def test_generous_budget_never_segments():
@@ -62,6 +63,7 @@ def test_tight_budget_segments_and_fits(track):
     per_seg = -(-len(plan.tracing_nus) // k)
     est = mem.estimate_segment_bytes(
         per_seg, len(plan.temperatures), len(plan.weights), mem.count_alpha_sources(plan),
+        tracked=track,
     ) + mem.fixed_overhead_bytes(plan, n_segments=k)
     assert est <= mem.HEADROOM * budget
     # one segment fewer would not fit
@@ -70,12 +72,15 @@ def test_tight_budget_segments_and_fits(track):
 
 
 def test_monotonic_in_grid_and_budget():
-    budgets = [1 << 34, 1 << 33, 1 << 32]
+    # untracked: 56 x 4 planes x 4 B a pixel, so 800k points segment under
+    # the smallest budget
+    budgets = [1 << 31, 1 << 30, 1 << 29]
     for n_nu in (50_000, 200_000, 800_000):
         ks = [mem.choose_nu_segments(_fake_plan(n_nu=n_nu), bytes_limit=b) for b in budgets]
         assert ks == sorted(ks)
-    assert (mem.choose_nu_segments(_fake_plan(n_nu=800_000), bytes_limit=1 << 33)
-            >= mem.choose_nu_segments(_fake_plan(n_nu=50_000), bytes_limit=1 << 33))
+    assert mem.choose_nu_segments(_fake_plan(n_nu=800_000), bytes_limit=budgets[-1]) > 1
+    assert (mem.choose_nu_segments(_fake_plan(n_nu=800_000), bytes_limit=1 << 30)
+            >= mem.choose_nu_segments(_fake_plan(n_nu=50_000), bytes_limit=1 << 30))
 
 
 def test_hopeless_budget_returns_1():
@@ -93,7 +98,7 @@ def test_pathological_segment_count_raises():
 def test_env_var_budget(monkeypatch):
     plan = _fake_plan(n_nu=800_000)
     assert mem.choose_nu_segments(plan, bytes_limit=1 << 50) == 1
-    monkeypatch.setenv("STARDIS_SEGMENT_BUDGET", str(1 << 32))
+    monkeypatch.setenv("STARDIS_SEGMENT_BUDGET", str(1 << 29))
     assert mem.choose_nu_segments(plan) > 1
 
 
@@ -105,9 +110,16 @@ def test_device_bytes_limit_without_a_card():
 
 def test_model_terms():
     """Per pixel: the opacity sources, total, source and F_nu, and Kernel 2's
-    [D, n, T] buffer; fixed: 8 [L, D] line arrays, plus the preallocated
+    [D, n, T] buffer only when I_nu is tracked (an untracked forward launch
+    allocates none); fixed: 8 [L, D] line arrays, plus the preallocated
     F_nu (and I_nu when tracked) only with segments."""
-    assert mem.per_pixel_bytes(56, 20, 5, itemsize=4) == 56 * (5 + 3 + 20) * 4
+    assert mem.per_pixel_bytes(56, 20, 5, itemsize=4, tracked=True) == 56 * (5 + 3 + 20) * 4
+    assert mem.per_pixel_bytes(56, 20, 5, itemsize=4, tracked=False) == 56 * (5 + 3) * 4
+    assert (mem.estimate_segment_bytes(1000, 56, 20, 5, 8, tracked=True)
+            - mem.estimate_segment_bytes(1000, 56, 20, 5, 8, tracked=False)) == 1000 * 56 * 20 * 8
+    for track in (False, True):
+        plan = _fake_plan(n_nu=1000, track=track)
+        assert _per_px(plan) == 56 * (1 + 3 + (20 if track else 0)) * 4
     plan = _fake_plan(n_nu=1000, n_lines=100, track=True)
     assert mem.count_alpha_sources(plan) == 2  # electron scattering + the line set
     assert mem.fixed_overhead_bytes(plan, 1, 8) == 8 * 100 * 56 * 8
