@@ -142,8 +142,10 @@ before that holds each kernel's launches (summed over the main paths of
 phases 5, 7-12 and 13; the CLI runs in a process of its own and is not
 counted), error, times and bound (the larger of the operations
 over the float32 peak and the bytes over the memory rate of an H100 SXM,
-from this run's inputs); Kernel 1's two entries also hold
-yardstick_bound_ms, the bound by its first design's operation count.
+from this run's inputs); Kernel 1's two entries and Kernel 2's two also
+hold yardstick_bound_ms, the bound by their first design's operation
+count, and Kernel 2's device_ms (profiler, untracked) and tracked_ms (CUDA
+events, I_nu stored).
 """
 
 import copy
@@ -629,6 +631,16 @@ def main():
         log(f"kernel 1 walk at {label}: {walked:.4e} (pixel, depth, line) triples walked by "
             f"blocks of {span} pixels, {inside:.4e} in a window ({inside / walked:.1%})")
 
+    def trace_device_ms(*args, reps=20, **kw):
+        """Kernel 2's device time per untracked launch (torch.profiler over
+        ``reps`` launches): what the card spends, where CUDA events around a
+        loop of calls also count the host's launch overhead."""
+        solver.raytrace(*args, **kw)
+        total_ms = kernel_device_ms(
+            torch, lambda: [solver.raytrace(*args, **kw) for _ in range(reps)],
+            ("trace_kernel",))["trace_kernel"]
+        return total_ms / reps
+
     def check_trace_bits(label, args, kw, f_tracked, i_tracked):
         """Kernel 2's F_nu untracked (no intensity buffer written) equal bit
         for bit to the tracked launch's, and two launches of each equal."""
@@ -947,16 +959,19 @@ def main():
                 tracked_ms = cuda_ms(torch, lambda: solver.raytrace(
                     total, source, ray, w, track_individual_intensities=True), 20)
                 plain_ms = cuda_ms(torch, lambda: solver.raytrace_plain(total, source, ray, w), 5)
+                dev_ms = trace_device_ms(total, source, ray, w)
                 shape = (1, *total.shape, len(plan.weights), 4, False)
                 bound_ms, bound_by = trace_bound(*shape)
                 yard_ms, _ = trace_bound(*shape, yardstick=True)
-                log(f"kernel 2 f32 full slice: kernel {ms:.4f} ms (I_nu stored: {tracked_ms:.4f} "
-                    f"ms, bound {trace_bound(*shape, tracked=True)[0]:.4f} ms), plain "
-                    f"{plain_ms:.3f} ms, max abs err {err:.3e}; bound {bound_ms:.4f} ms "
-                    f"({bound_by}), yardstick {yard_ms:.4f} ms")
+                log(f"kernel 2 f32 full slice: kernel {ms:.4f} ms (device time {dev_ms:.4f} ms; "
+                    f"I_nu stored: {tracked_ms:.4f} ms, bound "
+                    f"{trace_bound(*shape, tracked=True)[0]:.4f} ms), plain {plain_ms:.3f} ms, max "
+                    f"abs err {err:.3e}; bound {bound_ms:.4f} ms ({bound_by}), yardstick "
+                    f"{yard_ms:.4f} ms")
                 report["formal_solution"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                              "bound_ms": bound_ms, "bound_by": bound_by,
-                                             "library_ms": None, "tracked_ms": tracked_ms,
+                                             "library_ms": None, "device_ms": dev_ms,
+                                             "tracked_ms": tracked_ms,
                                              "yardstick_bound_ms": yard_ms}
     except Exception as exc:  # noqa: BLE001
         failures.append(f"kernel 2 phase: {exc!r}")
@@ -1163,12 +1178,14 @@ def main():
                     plain_ms = cuda_ms(
                         torch, lambda: solver.raytrace_plain(a, s, r, w, **kw), 5
                     )
+                    dev_ms = trace_device_ms(a, s, r, w, **kw)
                     shape = (1, *a.shape, len(gplan.weights), 4, True)
                     bound_ms, bound_by = trace_bound(*shape)
                     yard_ms, _ = trace_bound(*shape, yardstick=True)
-                    log(f"kernel 2 inward f32 giant: kernel {ms:.4f} ms (I_nu stored: "
-                        f"{tracked_ms:.4f} ms), plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms "
-                        f"({bound_by}), yardstick {yard_ms:.4f} ms")
+                    log(f"kernel 2 inward f32 giant: kernel {ms:.4f} ms (device time "
+                        f"{dev_ms:.4f} ms; I_nu stored: {tracked_ms:.4f} ms), plain "
+                        f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), yardstick "
+                        f"{yard_ms:.4f} ms")
                 entry = check_trace_grad(f"giant {label}", a, s, r, w, corr, True,
                                          label == "giant")
                 if entry:
@@ -1178,7 +1195,7 @@ def main():
         report["formal_solution_inward"] = {
             "max_abs_err": max(f32_errs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "tracked_ms": tracked_ms, "yardstick_bound_ms": yard_ms,
+            "device_ms": dev_ms, "tracked_ms": tracked_ms, "yardstick_bound_ms": yard_ms,
         }
     except Exception as exc:  # noqa: BLE001
         failures.append(f"inward sweep phase: {exc!r}")

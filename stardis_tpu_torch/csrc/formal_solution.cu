@@ -52,11 +52,20 @@
 // for bit on I_nu where the weights cancel (w1 = w0 - tau e just above the
 // Taylor threshold) and where the gap-0 wrap divides by a small surface tau.
 //
-// What bounds it on the H100: the issue of each ray's serial steps.  At 56
-// depths x 10k nu x 20 theta a model is 1.1e7 steps (twice that with the
-// inward sweep) of one exp, five IEEE divisions and ~25 other operations;
-// the bytes (alpha and source read once, F_nu written once: 6.7 MB) take
-// 2 us at 3.35 TB/s, and 45 MB more when I_nu is stored.
+// What bounds it on the H100: the issue of each ray's serial steps, not the
+// bytes (alpha and source read once, F_nu written once: 6.7 MB at 56 depths
+// x 10k nu, 2 us at 3.35 TB/s; 45 MB more when I_nu is stored).  At 20
+// theta a model is 1.1e7 steps (twice that with the inward sweep); an
+// interior step is 153 SASS instructions (float32, both weight branches
+// and the divisions' slow-path calls counted once), of which the five IEEE
+// divisions take ~10 each on their fast path (a subroutine where FCHK
+// finds an operand out of its range), the weights' exp ~12, and a warp
+// whose rays straddle a weight regime runs two branches.  Built with
+// approximate divisions (wrong bits) the kernel takes 23-56 % less time.
+// A block of 8 frequencies x 20 angles (160 threads, 40 registers in
+// float32) keeps 10 blocks on an SM; 4, 12, 16 and 24 frequencies, and
+// theta-sum chunks of 4 or 16 depths, ran from 4 % faster to 20 % slower
+// than it, depending on the shape.
 
 #include <cuda_runtime.h>
 

@@ -12,8 +12,9 @@
 // t), the recurrence I_{k+1} = f_k(I_k) = (1 - w0_k) I_k + w0_k S_{k+1} +
 // second_k + third_k over the gaps k = 0 .. G-1 (the last gap with the
 // constant-source jump), from I_0 = 0 or, spherical, from the inward
-// sweep's result; then F[d] = corr_b sum_t w_t I_t[d].  Its pass-1 buffer
-// I[b, d, n, t] is saved for this kernel, so the sweep is not recomputed.
+// sweep's result; then F[d] = corr_b sum_t w_t I_t[d].  Under autograd it
+// writes the buffer I[b, d, n, t], saved for this kernel, so the sweep is
+// not recomputed.
 //
 // Pass 1, one thread per ray:
 //  * spherical only: recompute the inward sweep (the forward keeps only its
@@ -32,7 +33,7 @@
 //    the ray writes q_k = tau_bar_k tau_k / 2 per gap and S_bar per depth
 //    into per-(ray, depth) partial buffers [B, D, N, T].
 // Pass 2, one thread per (b, d, n): sums the partials over theta in a fixed
-// order, as the forward's pass 2 sums the flux, and writes
+// order, as the forward sums the flux, and writes
 // alpha_bar = (sum_t q_{d-1} + q_d) / alpha_d and S_bar.  Each output is
 // written once: no atomics, two launches equal bit for bit.
 //
@@ -312,7 +313,7 @@ int launch(const T* alpha, const T* source, const T* ray, const T* w, const T* c
 
 // alpha, source: [n_models, n_depth, n_nu]; ray: [n_models, n_depth - 1,
 // n_theta]; w: [n_theta]; correction: [n_models]; intensity: Kernel 2's
-// pass-1 buffer [n_models, n_depth, n_nu, n_theta]; g_flux: dLoss/dF_nu
+// intensity buffer [n_models, n_depth, n_nu, n_theta]; g_flux: dLoss/dF_nu
 // shaped as alpha, or null; g_int: dLoss/dI_nu shaped as intensity, or
 // null; q, s_bar: scratch shaped as intensity; scratch: [n_models,
 // n_depth - 1, n_nu, n_theta] for the inward variant (else unused, may be
