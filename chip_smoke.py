@@ -34,7 +34,9 @@ Phases (any failure exits non-zero and prints no result):
      with and without a gradient on I_nu: float64 at 1e-9 of each
      frequency column's largest gradient, float32 within 1.5x the plain
      version's float32 error (2-norm) against the float64 gradient, two
-     launches equal bit for bit, both timed;
+     launches equal bit for bit, both timed; an untracked differentiated
+     round trip (Kernel 2, then Kernel 2b through autograd) allocates less
+     than one [1, 56, 10k, 20] buffer beyond F_nu and the two gradients;
   5. the slice: run_stardis(device="cuda", dtype=float32) on Sim100AA with
      100k synthetic lines; F_nu finite and positive, both kernels launched
      by that run; warm wall time and per-stage times; and at 10k lines the
@@ -123,7 +125,9 @@ Phases (any failure exits non-zero and prints no result):
      the all-plain path's gradient (1e-9); forward, backward and warm
      step walls, the backward kernels' device times, the peak memory of a
      step, and two float32 gradient runs compared (Kernels 1b and 2b must
-     be bit-equal; a stage-1 difference is traced to its op); the
+     be bit-equal; a stage-1 difference is traced to its op); the float32
+     gradient at 10k lines with the process-wide TF32 switch off and on
+     against the all-plain float64 path; the
      spherical giant with molecules (pairwise and coupled) at 10k + 2k
      lines: float64 d sum F_nu / dT at its most sensitive depth against a
      central difference (rtol 5e-3), float32 finite; a 4-member spherical
@@ -142,9 +146,9 @@ before that holds each kernel's launches (summed over the main paths of
 phases 5, 7-12 and 13; the CLI runs in a process of its own and is not
 counted), error, times and bound (the larger of the operations
 over the float32 peak and the bytes over the memory rate of an H100 SXM,
-from this run's inputs); Kernel 1's two entries and Kernel 2's two also
-hold yardstick_bound_ms, the bound by their first design's operation
-count, and Kernel 2's device_ms (profiler, untracked) and tracked_ms (CUDA
+from this run's inputs); every entry also holds yardstick_bound_ms, the
+bound by its kernel's first design's operation count; Kernel 2's two and
+Kernel 2b's two entries device_ms (profiler), Kernel 2's tracked_ms (CUDA
 events, I_nu stored).
 """
 
@@ -228,16 +232,42 @@ TRACE_STEP_FLOPS = 37
 # model, the staged mean extinction (a log, a sum, a product, an exp)
 KERNEL2_STEP_FLOPS = 30
 KERNEL2_GAP_FLOPS = 4
-# operations of one in-window evaluation in Kernel 1b, counted from
-# csrc/line_opacity_grad.cu by Humlicek region (x, |x| + y, z^2 and the three
-# sums: 17; then the region's value-and-derivative chain), and of finishing
-# one (model, depth, line) pair (its shuffle tree and three outputs)
-GRAD_VOIGT_FLOPS = {"I": 47, "II": 83, "III": 185, "IV": 299}
-GRAD_PAIR_FLOPS = 30
-# operations of one reverse depth step of one ray in Kernel 2b, counted from
-# csrc/formal_solution_grad.cu (step_adjoint 95, tau and the seed 11); the
-# inward variant adds a recomputed forward step and a reverse step per gap
+# operations of one in-window evaluation in Kernel 1b's first design by
+# Humlicek region, and of finishing one (model, depth, line) pair: the
+# yardstick of Kernel 1b's later designs (yardstick_bound_ms)
+GRAD_VOIGT_FLOPS_YARDSTICK = {"I": 47, "II": 83, "III": 185, "IV": 299}
+GRAD_PAIR_FLOPS_YARDSTICK = 30
+# the same, counted from csrc/line_opacity_grad.cu as it is (Kernel 1b's
+# bound_ms): region I x (2), a = z^2 - c0 (3), |a|^2 (3), the reciprocal,
+# q (2), q^2 (5), the three values (7) and the three sums (6); regions
+# II-IV the two region tests and |x| + y (5), x and the sums (8), and the
+# value-and-derivative chain with one reciprocal per complex quotient
+# (region II with S_D in closed form 106, III 174, IV 285); per pair 1/D
+# and y (3), one shuffle tree (15), one chunk's warp-by-warp sum (24) and
+# the finish (16)
+GRAD_VOIGT_FLOPS = {"I": 29, "II": 119, "III": 187, "IV": 298}
+GRAD_PAIR_FLOPS = 58
+# operations of one reverse depth step of one ray in Kernel 2b's first
+# design (its first source: step_adjoint 95, tau and the seed 11; the inward
+# variant added a recomputed forward step and a reverse step per gap): the
+# yardstick of its later designs (yardstick_bound_ms)
 TRACE_ADJ_STEP_FLOPS = 106
+# the same, counted from csrc/formal_solution_grad.cu as it is (Kernel 2b's
+# bound_ms): per gap of a ray the recomputed forward step
+# (KERNEL2_STEP_FLOPS) and the reverse step (step_adjoint 85: the weights
+# 8, three reciprocals and a + b 4, the parabolic terms and their adjoints
+# 62, the weights' adjoint 11; then tau 1, the seed's product and sum 2,
+# q 2, the depth's q_d + q_{d-1} 1); the inward variant adds the recomputed
+# inward step and a reverse inward step (step_adjoint 85, tau 1, q of both
+# gaps 4, the partials' updates 3, q_d + q_{d-1} 1); per (gap, frequency)
+# the staged mean extinction (KERNEL2_GAP_FLOPS); the theta sums 2 per
+# (depth, frequency, angle) and sweep, and per (depth, frequency) a
+# division (inward two more sums).  The gradient needs one recomputed step
+# of each sweep per gap: the inward kernel runs each sweep a second time,
+# from its checkpoints, and that repeat is its design's cost, not the
+# function's, so the bound leaves it out
+KERNEL2B_STEP_FLOPS = 91
+KERNEL2B_INWARD_STEP_FLOPS = 94
 # phase 13: the fit (examples/fit_stellar_parameters.py with instrumental
 # broadening added): parameters (T scale, v sin i [km/s], sigma [px])
 FIT_START = (1.0, 5.0, 2.0)
@@ -421,29 +451,46 @@ def trace_bound(n_models, n_depth, n_nu, n_theta, itemsize, inward, tracked=Fals
     return bound(flops, nbytes)
 
 
-def line_grad_bound(evaluations, n_models, n_lines, n_depth, n_out, itemsize):
+def line_grad_bound(evaluations, n_models, n_lines, n_depth, n_out, itemsize,
+                    yardstick=False):
     """Kernel 1b's bound: the value-and-derivative operations of Kernel 1's
-    in-window evaluations and the per-pair finish, or reading the [B, D, L]
+    in-window evaluations and the per-pair work as its source does them
+    (``yardstick``: as its first design did), or reading the [B, D, L]
     line arrays (three floats and the int32 window), the lines, the grid's
     range and the incoming gradient [B, D, n_out] once and writing three
     [B, D, L] gradients."""
+    voigt, pair = ((GRAD_VOIGT_FLOPS_YARDSTICK, GRAD_PAIR_FLOPS_YARDSTICK) if yardstick
+                   else (GRAD_VOIGT_FLOPS, GRAD_PAIR_FLOPS))
     pairs = n_models * n_depth * n_lines
-    flops = sum(GRAD_VOIGT_FLOPS[k] * v for k, v in evaluations.items()) + GRAD_PAIR_FLOPS * pairs
+    flops = sum(voigt[k] * v for k, v in evaluations.items()) + pair * pairs
     nbytes = (pairs * (3 * itemsize + 4) + n_lines * (itemsize + 4) + n_out * itemsize
               + n_models * n_depth * n_out * itemsize + 3 * pairs * itemsize)
     return bound(flops, nbytes)
 
 
-def trace_grad_bound(n_models, n_depth, n_nu, n_theta, itemsize, inward, with_i):
-    """Kernel 2b's bound: the reverse steps of every ray (and, spherical,
-    the recomputed and reversed inward sweep) and the theta sums, or
-    reading alpha, source, dL/dF_nu, the saved intensity (and dL/dI_nu)
-    once and writing the two gradients."""
+def trace_grad_bound(n_models, n_depth, n_nu, n_theta, itemsize, inward, with_i,
+                     yardstick=False):
+    """Kernel 2b's bound: per gap of every ray the recomputed forward step
+    and the reverse step (spherical: also the recomputed inward step and
+    the reverse inward step), the staged mean extinction and the theta sums,
+    or reading alpha, source and dL/dF_nu (and dL/dI_nu) once and writing
+    the two gradients.  ``yardstick``: the first design's count, which read
+    the saved intensity buffer too."""
     rays = n_models * n_nu * n_theta
-    per_gap = TRACE_ADJ_STEP_FLOPS + (TRACE_STEP_FLOPS + TRACE_ADJ_STEP_FLOPS if inward else 0)
-    flops = rays * (n_depth - 1) * per_gap + 3 * n_models * n_depth * n_nu * n_theta
     cells = n_models * n_depth * n_nu
-    nbytes = (5 * cells + cells * n_theta * (2 if with_i else 1)) * itemsize
+    if yardstick:
+        per_gap = TRACE_ADJ_STEP_FLOPS + (TRACE_STEP_FLOPS + TRACE_ADJ_STEP_FLOPS
+                                          if inward else 0)
+        flops = rays * (n_depth - 1) * per_gap + 3 * cells * n_theta
+        nbytes = (5 * cells + cells * n_theta * (2 if with_i else 1)) * itemsize
+        return bound(flops, nbytes)
+    per_gap = KERNEL2_STEP_FLOPS + KERNEL2B_STEP_FLOPS
+    if inward:
+        per_gap += KERNEL2_STEP_FLOPS + KERNEL2B_INWARD_STEP_FLOPS
+    flops = (rays * (n_depth - 1) * per_gap + n_models * (n_depth - 1) * n_nu * KERNEL2_GAP_FLOPS
+             + (4 if inward else 2) * cells * n_theta + (3 if inward else 1) * cells
+             + (cells * n_theta if with_i else 0))
+    nbytes = (5 * cells + (cells * n_theta if with_i else 0)) * itemsize
     return bound(flops, nbytes)
 
 
@@ -668,16 +715,16 @@ def main():
         error no more than 1.5x the plain version's own float32 error (the
         worst column's error, printed too, swings with the incoming
         gradient's cancellations in both).  Two launches equal bit for
-        bit.  Returns the kernel's report entry when ``timed`` (float32)."""
+        bit.  Returns the kernel's report entry when ``timed`` (float32):
+        CUDA events around the wrapper, the profiler's device time, and the
+        bound beside the first design's (yardstick)."""
         dtype = a.dtype
         n_depth, n_nu = a.shape
         gen = torch.Generator(dev).manual_seed(5)
         g_f = torch.randn((1, n_depth, n_nu), device=dev, dtype=dtype, generator=gen)
         g_i = torch.randn((1, n_depth, n_nu, len(w)), device=dev, dtype=dtype, generator=gen)
         corr_t = torch.full((1,), 1.0 if corr is None else corr, device=dev, dtype=dtype)
-        intensity = solver.raytrace(a, s, r, w, inward_rays=inward, photospheric_correction=corr,
-                                    track_individual_intensities=True)[1]
-        args = (a[None], s[None], r[None], w, corr_t, intensity[None])
+        args = (a[None], s[None], r[None], w, corr_t)
         name = "f64" if dtype == torch.float64 else "f32"
         entry = None
 
@@ -717,13 +764,23 @@ def main():
             if timed and not with_i and dtype == torch.float32:
                 err = max((k[0] - p).abs().max().item() for k, p in zip(kern, plain))
                 ms = cuda_ms(torch, lambda: solver.raytrace_grad_cuda(*args, g_f, None, inward), 20)
+                dev_ms = kernel_device_ms(
+                    torch, lambda: [solver.raytrace_grad_cuda(*args, g_f, None, inward)
+                                    for _ in range(20)], ("trace_grad_kernel",))
+                dev_ms = dev_ms["trace_grad_kernel"] / 20
                 plain_ms = cuda_ms(torch, lambda: plain_of(a, s, r, w, g_f[0], g_int=None), 3)
-                bound_ms, bound_by = trace_grad_bound(1, n_depth, n_nu, len(w), 4, inward, False)
-                log(f"kernel 2b {'inward ' if inward else ''}f32 ({label}): kernel {ms:.3f} ms, "
-                    f"plain {plain_ms:.3f} ms, max abs err {err:.3e}; bound {bound_ms:.4f} ms "
-                    f"({bound_by})")
+                shape = (1, n_depth, n_nu, len(w), 4, inward, False)
+                bound_ms, bound_by = trace_grad_bound(*shape)
+                yard_ms, _ = trace_grad_bound(*shape, yardstick=True)
+                tile, _, shared = solver.trace_grad_tile(n_depth, len(w), 4, inward)
+                log(f"kernel 2b {'inward ' if inward else ''}f32 ({label}): kernel {ms:.4f} ms "
+                    f"(device time {dev_ms:.4f} ms; {tile} frequencies x {len(w)} theta a "
+                    f"block, {shared} B shared), plain {plain_ms:.3f} ms, max abs err "
+                    f"{err:.3e}; bound {bound_ms:.4f} ms ({bound_by}; counted from the "
+                    f"source), yardstick {yard_ms:.4f} ms (the first design's count)")
                 entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                         "device_ms": dev_ms, "yardstick_bound_ms": yard_ms}
         return entry
 
     # --- 3. Kernel 1 against its plain version -----------------------------
@@ -875,11 +932,13 @@ def main():
                     args[4].double().cpu().numpy(), args[5].double().cpu().numpy(),
                     iw.cpu().numpy())
                 bound_ms, bound_by = line_grad_bound(evals, 1, n_lines, n_depth, n_nu, 4)
+                yard_ms, _ = line_grad_bound(evals, 1, n_lines, n_depth, n_nu, 4, yardstick=True)
                 log(f"kernel 1b f32 full slice: kernel {ms:.3f} ms, plain {plain_ms:.0f} ms (one "
-                    f"call), max abs err {err:.3e}; bound {bound_ms:.3f} ms ({bound_by})")
+                    f"call), max abs err {err:.3e}; bound {bound_ms:.3f} ms ({bound_by}; counted "
+                    f"from the source), yardstick {yard_ms:.3f} ms (the first design's count)")
                 report["line_opacity_grad"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                                "bound_ms": bound_ms, "bound_by": bound_by,
-                                               "library_ms": None}
+                                               "library_ms": None, "yardstick_bound_ms": yard_ms}
                 # the per-depth widest window of prepare_line_opacity (the JAX
                 # package's block-max windows, line_kernel.py:221, :265): one
                 # torch amax over [B, D, L] int32, bound by its bytes
@@ -988,6 +1047,32 @@ def main():
                                      False, True)
             if entry:
                 report["formal_solution_grad"] = entry
+            if dtype == torch.float32:
+                # an untracked differentiated round trip (Kernel 2, then Kernel
+                # 2b through autograd) allocates F_nu and the two gradients:
+                # no [1, D, N, T] intensity saved, no partial buffer
+                a_in = total[None].detach().clone().requires_grad_()
+                s_in = source[None].detach().clone().requires_grad_()
+                g_in = torch.randn(a_in.shape, device=dev, generator=torch.Generator(dev)
+                                   .manual_seed(8))
+
+                def round_trip():
+                    f_nu, _ = solver.raytrace(a_in, s_in, ray[None], w)
+                    return torch.autograd.grad(f_nu, (a_in, s_in), g_in)
+
+                peak, grads = peak_bytes(torch, round_trip)
+                io = 3 * a_in.numel() * a_in.element_size()
+                buffer = a_in.numel() * len(w) * a_in.element_size()
+                log(f"kernel 2b untracked round trip (Sim100AA, float32, Kernels 2 and 2b "
+                    f"through autograd): peak {peak / 1e6:.3f} MB over its inputs, of which "
+                    f"F_nu and the two gradients {io / 1e6:.3f} MB; beyond them "
+                    f"{(peak - io) / 1e6:.3f} MB (bound: less than one [1, 56, 10k, 20] "
+                    f"buffer, {buffer / 1e6:.1f} MB); gradients finite "
+                    f"{all(bool(torch.isfinite(x).all()) for x in grads)}")
+                if not (peak - io < buffer and all(torch.isfinite(x).all() for x in grads)):
+                    failures.append(f"kernel 2b round trip allocates {peak - io} B beyond its "
+                                    f"inputs and outputs (a buffer is {buffer} B)")
+                del a_in, s_in, g_in, grads
             del total, source, state
     except Exception as exc:  # noqa: BLE001
         failures.append(f"kernel 2b phase: {exc!r}")
@@ -1718,8 +1803,9 @@ def main():
             f"{timings['line_opacity'] * 1e3:.1f} ms")
         log_walk("flagship", lk.line_center_indices(fplan.tracing_nus, fplan.line_data.nu),
                  f_iw.amax(dim=0).cpu().numpy(), FLAGSHIP_POINTS, evals)
-        g_bound, g_by = line_grad_bound(evals, 1, fplan.line_data.n_lines,
-                                        len(fplan.temperatures), FLAGSHIP_POINTS, 4)
+        g_shape = (evals, 1, fplan.line_data.n_lines, len(fplan.temperatures), FLAGSHIP_POINTS, 4)
+        g_bound, g_by = line_grad_bound(*g_shape)
+        g_yard, _ = line_grad_bound(*g_shape, yardstick=True)
         g_flag = torch.randn((1, len(fplan.temperatures), FLAGSHIP_POINTS), device=dev,
                              generator=torch.Generator(dev).manual_seed(7))
 
@@ -1800,7 +1886,8 @@ def main():
                 sched = lk.line_grad_schedule(kin.centers, kin.iw, FLAGSHIP_POINTS, 0,
                                               FLAGSHIP_POINTS, lk.line_grad_chunk(dtype))
                 log(f"flagship Kernel 1b f32 over the whole grid ({fplan.line_data.n_lines} lines "
-                    f"x 56 x {FLAGSHIP_POINTS}): {g_ms:.1f} ms; bound {g_bound:.3f} ms ({g_by}); "
+                    f"x 56 x {FLAGSHIP_POINTS}): {g_ms:.1f} ms; bound {g_bound:.3f} ms ({g_by}), "
+                    f"yardstick {g_yard:.3f} ms; "
                     f"{sched.n_units} blocks of up to {sched.split_pixels} pixels; finite "
                     f"{finite}; two launches equal bit for bit: {same}")
                 if not (same and finite):
@@ -2114,7 +2201,7 @@ def main():
         peak, _ = peak_bytes(torch, step_walls)
         # "line_opacity_grad" sums Kernel 1b's two passes
         dev_ms = kernel_device_ms(torch, step_walls, ("line_opacity_grad",
-                                                      "trace_grad_kernel", "grad_sum_kernel",
+                                                      "trace_grad_kernel",
                                                       "line_opacity_kernel", "trace_kernel"))
         log(f"fit step (float32, median of 3): forward {fwd:.4f} s, backward {bwd:.4f} s, "
             f"value and gradient {fwd + bwd:.4f} s; peak memory of a step {peak / 1e9:.3f} GB; "
@@ -2190,7 +2277,34 @@ def main():
             + f"; max rel err {plain_rel:.3e} (bound 1e-9)")
         if not plain_rel <= 1e-9:
             failures.append(f"fit gradient kernel vs all-plain rel err {plain_rel:.3e}")
-        del spectrum, spec64, spec_s, observed, obs64, obs_s
+        # a caller's process-wide TF32 switch on: the float32 fit gradient at
+        # N_LINES_PLAIN_CHECK lines against the all-plain float64 path, beside
+        # the same with the switch off (the bf and broadening products run in
+        # full float32, forward and backward, either way)
+        spec32 = fit_model(plan_small, torch.float32)
+        obs32 = spec32(torch.tensor(FIT_TRUE, device=dev))[0].detach()
+        g_tf32 = {}
+        tf32_kept = torch.backends.cuda.matmul.allow_tf32
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                q = start.clone().requires_grad_()
+                g_tf32[tf32] = torch.autograd.grad(fit_loss(spec32, obs32, q)[0], q)[0]
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = tf32_kept
+        tf32_rel = {k: ((v.double() - grads[1]).abs() / grads[1].abs()).tolist()
+                    for k, v in g_tf32.items()}
+        log(f"fit gradient float32 at {N_LINES_PLAIN_CHECK} lines against the all-plain float64 "
+            "path, rel diff per parameter: TF32 switch off "
+            + ", ".join(f"{x:.3e}" for x in tf32_rel[False]) + "; on "
+            + ", ".join(f"{x:.3e}" for x in tf32_rel[True])
+            + f"; on == off bit for bit: {torch.equal(g_tf32[False], g_tf32[True])}")
+        if not all(np.isfinite(v).all() for v in tf32_rel.values()):
+            failures.append(f"fit gradient with the TF32 switch on: {tf32_rel}")
+        if not torch.equal(g_tf32[False], g_tf32[True]):
+            failures.append("fit gradient float32: the TF32 switch changed it: "
+                            f"{g_tf32[False].tolist()} off, {g_tf32[True].tolist()} on")
+        del spectrum, spec64, spec_s, spec32, observed, obs64, obs_s, obs32
     except Exception as exc:  # noqa: BLE001
         failures.append(f"fit phase: {exc!r}")
 

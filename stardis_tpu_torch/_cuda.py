@@ -29,10 +29,13 @@ NVCC_FLAGS = (
 #: products rounds as in the plain version: the weights w1 = w0 - tau e and
 #: w2 = 2 w1 - tau^2 e cancel, and the reference's gap-0 wrap divides by
 #: the surface tau, so a fused product there moves I_nu far beyond one
-#: rounding; the backward recomputes the inward sweep and must round it as
-#: the forward did.
+#: rounding; the backward recomputes both sweeps and must round them as
+#: the forward did.  Kernel 2b's checkpoint span (the steps between two
+#: intensities a recomputed sweep keeps, radiation_field.solver's
+#: TRACE_GRAD_SPAN) is compiled in as SPAN.
+TRACE_GRAD_SPAN = 8
 KERNEL_FLAGS = {"formal_solution": ("-fmad=false",),
-                "formal_solution_grad": ("-fmad=false",)}
+                "formal_solution_grad": ("-fmad=false", f"-DSPAN={TRACE_GRAD_SPAN}")}
 #: every kernel of csrc/, in the order chip_smoke.py builds them
 KERNELS = ("line_opacity", "formal_solution", "line_opacity_grad", "formal_solution_grad")
 

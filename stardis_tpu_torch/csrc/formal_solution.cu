@@ -42,9 +42,9 @@
 //    double-buffered, so the next chunk's steps overlap the sums.  A chunk
 //    of 8 depths keeps the buffer at 10 KB (float32, F = 8, T = 20), where
 //    [D][F][T] would hold 72 KB and cap the blocks an SM keeps in flight.
-//  * I[b, d, n, t] ([B, D, N, T], the JAX layout of I_nus per model, which
-//    Kernel 2b reads) is written only when the caller passes a buffer: when
-//    I_nu is tracked or a gradient will need it.  The store is coalesced:
+//  * I[b, d, n, t] ([B, D, N, T], the JAX layout of I_nus per model) is
+//    written only when the caller passes a buffer: when I_nu is tracked
+//    (Kernel 2b recomputes the sweep and reads none).  The store is coalesced:
 //    at one depth the block's threads write F T consecutive elements.
 //
 // Built with -fmad=false (_cuda.KERNEL_FLAGS): every product and sum rounds

@@ -18,6 +18,7 @@ from ..constants import (
     RYDBERG_FREQUENCY,
     SIGMA_T_CGS,
 )
+from ..util.matmul import full_float32_matmul
 from ..util.species import species_string_to_tuple
 
 RAYLEIGH_COEFFS = {
@@ -90,14 +91,13 @@ def calc_alpha_bf_hydrogenic(
 
     alpha[d, n] = sum_k 1[nu >= nu_k] c_k (nu/cutoff_k)^-3 n_k
     evaluated as a (D,K)x(K,N) matmul.  The matmul is torch.matmul, as the
-    JAX package leaves it to XLA; on CUDA it needs
-    torch.backends.cuda.matmul.allow_tf32 = False (full float32), which
-    the pipeline sets before the call.
+    JAX package leaves it to XLA, in full float32 on CUDA (TF32 off),
+    forward and backward (util.matmul.full_float32_matmul).
     """
     ratio = tracing_nus[None, :] / cutoff_frequencies[:, None]  # [K, N] O(1)
     mask = (ratio >= 1.0).to(level_densities.dtype)
     weighted = coefficients[:, None] * mask / ratio**3  # [K, N]
-    return level_densities.T @ weighted  # [D, N]
+    return full_float32_matmul(level_densities.T, weighted)  # [D, N]
 
 
 def calc_alpha_ff_hydrogenic(

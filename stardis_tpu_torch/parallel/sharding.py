@@ -91,11 +91,9 @@ def segmented_spectrum(plan, state, line_quants, n_segments, consts, collect_opa
     carry gradients to stage 1's tensors (each range's Kernels 1b and 2b
     sum over that range only).  With it, a stage-1 tensor that requires
     grad raises: the host copies carry none.  Under autograd the ranges do
-    not bound device memory: each range's saved tensors (Kernel 2's
-    [1, D, n, T] intensity buffer, its opacities and source) live until the
-    backward, which adds Kernel 2b's two [1, D, n, T] partial buffers per
-    range (and a [1, G, n, T] scratch for the inward sweep);
-    ``util.memory`` and ``nu_segments="auto"`` model forward-only runs.
+    not bound device memory: each range's saved tensors (its opacities and
+    source) live until the backward; ``util.memory`` and
+    ``nu_segments="auto"`` model forward-only runs.
     Returns F_nu [D, N]; (F_nu, I_nus)
     when the plan tracks I_nu; (F_nu, I_nus or None, opacities, total)
     with ``collect_opacities``.

@@ -347,18 +347,6 @@ def _stage(timings, name, device):
     timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
 
 
-@contextmanager
-def _full_float32_matmul():
-    """Matrix products in full float32, not TF32, inside the block only:
-    the previous setting comes back afterwards."""
-    previous = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = previous
-
-
 def host_array(tensor, what):
     """``tensor`` as a host NumPy array.  A tensor that carries a gradient
     raises instead: the copy would silently cut the autograd graph."""
@@ -489,14 +477,14 @@ def compute_continuum(plan: SimulationPlan, state, tracing_nus, file_sigmas=None
         level_densities = state.level_number_density[
             torch.as_tensor(plan.bf.level_flat, device=t.device)
         ]
-        # the bf (D,K)x(K,N) product runs in full float32 on the card
-        with _full_float32_matmul():
-            out["alpha_bf"] = cont.calc_alpha_bf_hydrogenic(
-                tracing_nus,
-                level_densities,
-                _tensor(plan.bf.cutoff_frequencies, t),
-                _tensor(plan.bf.coefficients, t),
-            )
+        # the bf (D,K)x(K,N) product runs in full float32 on the card,
+        # its backward too (util.matmul)
+        out["alpha_bf"] = cont.calc_alpha_bf_hydrogenic(
+            tracing_nus,
+            level_densities,
+            _tensor(plan.bf.cutoff_frequencies, t),
+            _tensor(plan.bf.coefficients, t),
+        )
 
     if len(plan.ff_slots):
         ion_densities = state.ion_number_density[

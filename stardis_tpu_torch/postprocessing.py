@@ -29,7 +29,7 @@ import torch
 
 from . import units as u
 from .constants import C_KMS
-from .pipeline import _full_float32_matmul
+from .util.matmul import full_float32_matmul
 
 
 def rotation_broadening(velocity_per_pix, wavelength, flux, v_rot=None, limb_darkening=0.6):
@@ -110,8 +110,7 @@ def _reflect_convolve(flux, kernel, half: int):
     if half == 0:
         return flux * kernel[0]
     windows = _symmetric_pad(flux, half).unfold(0, 2 * half + 1, 1)  # [N, 2 half + 1]
-    with _full_float32_matmul():
-        return windows @ kernel.flip(0)
+    return full_float32_matmul(windows, kernel.flip(0))
 
 
 def _scalar(x, like):

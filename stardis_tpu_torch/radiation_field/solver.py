@@ -16,7 +16,9 @@ as in ``stardis_tpu/radiation_field/solver.py``:
   kernel (csrc/formal_solution.cu) a serial loop per (model, nu, theta)
   thread, a block holding a tile of frequencies and all their angles,
   with the theta-invariant mean extinction and source staged once per
-  tile and the theta sum fused.
+  tile and the theta sum fused; its backward, Kernel 2b
+  (csrc/formal_solution_grad.cu), recomputes the sweep in the same tile
+  and saves no intensity.
 
 Every function takes a leading model axis: alphas and source [B, D, N],
 ray distances [B, G, T], one correction per model.  ``raytrace`` also
@@ -295,6 +297,11 @@ TRACE_MAX_TILE = 32
 TRACE_MAX_THREADS = 512
 TRACE_CHUNK = 8
 TRACE_MAX_SHARED = 232_448
+#: Kernel 2b's theta sums run per TRACE_GRAD_CHUNK depths; its recomputed
+#: sweeps keep a checkpoint every TRACE_GRAD_SPAN steps where they keep
+#: checkpoints (the build's -DSPAN, _cuda.KERNEL_FLAGS)
+TRACE_GRAD_CHUNK = 4
+TRACE_GRAD_SPAN = _cuda.TRACE_GRAD_SPAN
 
 
 def trace_tile(n_depth, n_theta, itemsize):
@@ -316,6 +323,54 @@ def trace_tile(n_depth, n_theta, itemsize):
     return tile, shared
 
 
+def trace_grad_shared(n_depth, n_theta, tile, span, itemsize, inward):
+    """Dynamic shared bytes of one block of Kernel 2b (csrc/formal_solution_grad.cu's
+    shared_elems; a launch checks the two agree): the gaps' mean
+    extinction [G][F], the source and dL/dF_nu [D][F], the chords [G][T],
+    the weights [T]; the outward sweep's checkpoints [ceil((G - 1) / span)][F][T]
+    (every interior gap's entering intensity at a span of 1); the
+    double-buffered theta-sum chunks [2][2 TRACE_GRAD_CHUNK][F][T];
+    inward, the inward sweep's checkpoints [ceil(G / S)][F][T] (S =
+    TRACE_GRAD_SPAN); at a span of S a recomputed segment [S][F][T];
+    inward, the outward reverse's theta sums [2][D][F]."""
+    n_gaps, big = n_depth - 1, TRACE_GRAD_SPAN
+    planes = (-(-(n_gaps - 1) // span) + 4 * TRACE_GRAD_CHUNK
+              + (-(-n_gaps // big) if inward else 0) + (big if span > 1 else 0))
+    return itemsize * (n_gaps * tile + 2 * n_depth * tile + n_gaps * n_theta + n_theta
+                       + planes * tile * n_theta + (2 * n_depth * tile if inward else 0))
+
+
+def trace_grad_tile(n_depth, n_theta, itemsize, inward):
+    """(frequencies per block, outward checkpoint span, dynamic shared
+    bytes) of Kernel 2b's launch for D depths and T angles.  The tile is
+    Kernel 2's (TRACE_THREADS // T frequencies), halved only while a block
+    would exceed TRACE_MAX_SHARED.  The outward variant keeps every
+    entering intensity (a span of 1) while one frequency's block can hold
+    them, else a checkpoint every TRACE_GRAD_SPAN steps; the inward
+    variant always keeps checkpoints.  Up to 26 angles this takes every
+    depth count Kernel 2's forward takes (trace_tile); beyond, the chords
+    and checkpoints leave fewer (at T = 100, 482 depths in float32 and 230
+    in float64 against Kernel 2's 554 and 269).  Raises ValueError where no
+    block holds T angles: more than TRACE_MAX_THREADS of them, or, at T =
+    20, beyond 2,259 depths in float32 and 1,120 in float64 (outward)."""
+    top = max(1, min(TRACE_MAX_TILE, TRACE_THREADS // n_theta))
+    shared = None
+    for span in ((TRACE_GRAD_SPAN,) if inward else (1, TRACE_GRAD_SPAN)):
+        tile = top
+        while tile > 1 and trace_grad_shared(n_depth, n_theta, tile, span, itemsize,
+                                             inward) > TRACE_MAX_SHARED:
+            tile //= 2
+        shared = trace_grad_shared(n_depth, n_theta, tile, span, itemsize, inward)
+        if shared <= TRACE_MAX_SHARED:
+            break
+    if tile * n_theta > TRACE_MAX_THREADS or shared > TRACE_MAX_SHARED:
+        raise ValueError(
+            f"formal_solution_grad kernel: {n_theta} angles at {n_depth} depths need "
+            f"{tile * n_theta} threads and {shared} B of shared memory per block "
+            f"(at most {TRACE_MAX_THREADS} and {TRACE_MAX_SHARED})")
+    return tile, span, shared
+
+
 def raytrace_cuda(alphas, source, ray_distances, weights, inward_rays=False,
                   photospheric_correction=None,
                   track_individual_intensities=False):
@@ -325,11 +380,10 @@ def raytrace_cuda(alphas, source, ray_distances, weights, inward_rays=False,
 
     Differentiable in alphas and source (and through F_nu and the tracked
     I_nus): the backward is Kernel 2b (csrc/formal_solution_grad.cu),
-    which reads the forward's saved intensity buffer [B, D, N, T].  The
-    kernel writes that buffer only when it is read: when I_nus is tracked
-    or autograd records a gradient of alphas or source; otherwise nothing
-    of that size is allocated.  Ray distances, weights and the corrections
-    are constants of the plan."""
+    which recomputes the sweep from alphas and source.  The kernel writes
+    the intensity buffer [B, D, N, T] only when I_nus is tracked; nothing
+    of that size is allocated or saved otherwise, under autograd too.  Ray
+    distances, weights and the corrections are constants of the plan."""
     n_models = alphas.shape[0]
     if any(t.requires_grad for t in (ray_distances, weights)) or (
             torch.is_tensor(photospheric_correction)
@@ -337,17 +391,14 @@ def raytrace_cuda(alphas, source, ray_distances, weights, inward_rays=False,
         raise ValueError("formal_solution kernel: only alphas and source are differentiable")
     correction = _corrections(photospheric_correction, n_models, alphas).contiguous()
     track = bool(track_individual_intensities)
-    store = track or (torch.is_grad_enabled()
-                      and (alphas.requires_grad or source.requires_grad))
     f_nu, intensity = _Raytrace.apply(alphas, source, ray_distances, weights, correction,
-                                      bool(inward_rays), track, store)
+                                      bool(inward_rays), track)
     return f_nu, (intensity if track else None)
 
 
-def _launch_trace(alphas, source, ray_distances, weights, correction, inward_rays, store):
+def _launch_trace(alphas, source, ray_distances, weights, correction, inward_rays, track):
     """Kernel 2's launch on contiguous tensors: F_nu [B, D, N] and, when
-    ``store``, the intensity buffer [B, D, N, T] (the I_nus output when
-    tracked, Kernel 2b's input), else None."""
+    I_nus is tracked, the intensity buffer [B, D, N, T], else None."""
     n_models, n_depth, n_nu = alphas.shape
     dtype = alphas.dtype
     tensors = (alphas, source, ray_distances, weights, correction)
@@ -366,7 +417,7 @@ def _launch_trace(alphas, source, ray_distances, weights, correction, inward_ray
         raise ValueError("formal_solution kernel: one photospheric correction per model")
     tile, _ = trace_tile(n_depth, n_theta, alphas.element_size())
     intensity = (torch.empty((n_models, n_depth, n_nu, n_theta), dtype=dtype,
-                             device=alphas.device) if store else None)
+                             device=alphas.device) if track else None)
     f_nu = torch.empty((n_models, n_depth, n_nu), dtype=dtype, device=alphas.device)
     suffix = "f32" if dtype == torch.float32 else "f64"
     fn = _cuda.bind("formal_solution", f"formal_solution_{suffix}", _TRACE_ARGS)
@@ -387,21 +438,20 @@ def _launch_trace(alphas, source, ray_distances, weights, correction, inward_ray
 
 class _Raytrace(torch.autograd.Function):
     """Kernel 2 forward, Kernel 2b backward.  The second output is the
-    intensity buffer, saved for Kernel 2b, when ``store``; else an empty
-    tensor.  Untracked, it is marked non-differentiable."""
+    tracked intensity buffer, or an empty tensor marked non-differentiable
+    when I_nus is not tracked.  Only the inputs are saved: Kernel 2b
+    recomputes the sweep."""
 
     @staticmethod
-    def forward(ctx, alphas, source, ray_distances, weights, correction, inward_rays, track,
-                store):
+    def forward(ctx, alphas, source, ray_distances, weights, correction, inward_rays, track):
         alphas, source, ray_distances, weights = (
             t.contiguous() for t in (alphas, source, ray_distances, weights))
         f_nu, intensity = _launch_trace(alphas, source, ray_distances, weights, correction,
-                                        inward_rays, store)
+                                        inward_rays, track)
         if intensity is None:
             intensity = alphas.new_empty(0)
-        if not track:
             ctx.mark_non_differentiable(intensity)
-        ctx.save_for_backward(alphas, source, ray_distances, weights, correction, intensity)
+        ctx.save_for_backward(alphas, source, ray_distances, weights, correction)
         ctx.inward_rays = inward_rays
         ctx.set_materialize_grads(False)
         return f_nu, intensity
@@ -409,30 +459,34 @@ class _Raytrace(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_flux, g_intensity):
         grads = raytrace_grad_cuda(*ctx.saved_tensors, g_flux, g_intensity, ctx.inward_rays)
-        return (*grads, None, None, None, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
-_TRACE_GRAD_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_TRACE_GRAD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
-def raytrace_grad_cuda(alphas, source, ray_distances, weights, correction, intensity,
-                       g_flux, g_intensity, inward_rays):
+def raytrace_grad_cuda(alphas, source, ray_distances, weights, correction, g_flux,
+                       g_intensity, inward_rays):
     """Kernel 2b (csrc/formal_solution_grad.cu): (dL/dalphas, dL/dsource)
-    [B, D, N] from Kernel 2's inputs, its intensity buffer and the incoming
-    gradients of F_nu [B, D, N] and I_nus [B, D, N, T] (either may be
-    None), each output written once."""
+    [B, D, N] from Kernel 2's inputs and the incoming gradients of F_nu
+    [B, D, N] and I_nus [B, D, N, T] (either may be None), each output
+    written once.  The kernel recomputes the forward sweep in its blocks
+    and allocates nothing beyond the two outputs; the gradient of F_nu
+    does not depend on whether I_nus was tracked."""
     n_models, n_depth, n_nu = alphas.shape
     n_theta = weights.shape[0]
     dtype = alphas.dtype
-    saved = (alphas, source, ray_distances, weights, correction, intensity)
+    saved = (alphas, source, ray_distances, weights, correction)
     if any(t.dtype != dtype or t.device != alphas.device or not t.is_contiguous()
            for t in saved):
         raise ValueError("formal_solution_grad kernel: inputs must be contiguous, of one "
                          "dtype, on one CUDA device")
-    if (source.shape != alphas.shape or intensity.shape != (*alphas.shape, n_theta)
+    if (source.shape != alphas.shape
             or ray_distances.shape != (n_models, n_depth - 1, n_theta)
             or correction.shape != (n_models,)):
         raise ValueError("formal_solution_grad kernel: shapes must be Kernel 2's")
+    itemsize, inward = alphas.element_size(), bool(inward_rays)
+    tile, span, shared = trace_grad_tile(n_depth, n_theta, itemsize, inward)
 
     def incoming(g, shape):
         if g is None:
@@ -442,26 +496,28 @@ def raytrace_grad_cuda(alphas, source, ray_distances, weights, correction, inten
         return g.contiguous()
 
     g_flux = incoming(g_flux, alphas.shape)
-    g_intensity = incoming(g_intensity, intensity.shape)
+    g_intensity = incoming(g_intensity, (*alphas.shape, n_theta))
     g_alpha = torch.empty_like(alphas)
     g_source = torch.empty_like(alphas)
     if g_flux is None and g_intensity is None:
         return g_alpha.zero_(), g_source.zero_()
-    q = torch.empty_like(intensity)
-    s_bar = torch.empty_like(intensity)
-    scratch = (torch.empty((n_models, n_depth - 1, n_nu, n_theta), dtype=dtype,
-                           device=alphas.device) if inward_rays else None)
     suffix = "f32" if dtype == torch.float32 else "f64"
     fn = _cuda.bind("formal_solution_grad", f"formal_solution_grad_{suffix}",
                     _TRACE_GRAD_ARGS)
+    layout = _cuda.bind("formal_solution_grad", "formal_solution_grad_shared_bytes",
+                        [ctypes.c_int] * 7)
+    layout.restype = ctypes.c_longlong
+    if layout(n_depth, n_theta, tile, TRACE_GRAD_CHUNK, span, itemsize, int(inward)) != shared:
+        raise RuntimeError("formal_solution_grad kernel: its shared layout is not "
+                           "trace_grad_shared's")
 
     def p(t):
         return ctypes.c_void_p(None) if t is None else _cuda.ptr(t)
 
     status = fn(
-        p(alphas), p(source), p(ray_distances), p(weights), p(correction), p(intensity),
-        p(g_flux), p(g_intensity), p(q), p(s_bar), p(scratch), p(g_alpha), p(g_source),
-        n_models, n_depth, n_nu, n_theta, int(bool(inward_rays)),
+        p(alphas), p(source), p(ray_distances), p(weights), p(correction), p(g_flux),
+        p(g_intensity), p(g_alpha), p(g_source), n_models, n_depth, n_nu, n_theta, tile,
+        TRACE_GRAD_CHUNK, span, int(inward),
         _cuda.stream_ptr(alphas.device),
     )
     if inward_rays:

@@ -28,11 +28,11 @@ it for the smallest K whose footprint fits.  There is no retry on an
 out-of-memory error: a budget too small for one pixel returns K = 1 and
 the device reports the failure.
 
-The model covers forward-only runs.  A differentiated run still holds
-Kernel 2's [D, n, T] intensity buffer, tracked or not (Kernel 2b reads
-it), every range keeps its saved tensors until the backward, and the
-backward adds Kernel 2b's buffers, so segments do not bound the peak; ``chip_smoke.py`` phase 13
-measures a differentiated segmented run's peak beside this estimate.
+The model covers forward-only runs.  A differentiated run keeps every
+range's saved tensors (its opacities and source; Kernel 2b recomputes
+the sweep, so no [D, n, T] intensity is saved) until the backward, so
+segments do not bound the peak; ``chip_smoke.py`` phase 13 measures a
+differentiated segmented run's peak beside this estimate.
 """
 
 from __future__ import annotations

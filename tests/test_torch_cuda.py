@@ -154,8 +154,8 @@ def test_formal_solution_inward_and_model_axis_match_plain(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("spherical", [False, True], ids=["plane", "spherical"])
 def test_formal_solution_untracked_equals_tracked(cuda, dtype, spherical):
-    """Kernel 2 writes the [B, D, N, T] intensity buffer only when it is
-    read: tracked and untracked F_nu are equal bit for bit, two launches
+    """Kernel 2 writes the [B, D, N, T] intensity buffer only when I_nu is
+    tracked: tracked and untracked F_nu are equal bit for bit, two launches
     too, and an untracked launch under no_grad raises the peak by less than
     one such buffer (F_nu alone is a T-th of it)."""
     if spherical:
@@ -407,3 +407,102 @@ def test_formal_solution_grad_kernel_matches_plain(cuda, dtype, track, spherical
     exact = plain(*f64)
     for k, p, e in zip(first, ref, exact):
         assert (k.double() - e).norm() <= 1.5 * (p.double() - e).norm()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("spherical", [False, True], ids=["plane", "spherical"])
+def test_formal_solution_grad_of_flux_independent_of_tracking(cuda, dtype, spherical):
+    """The gradient of F_nu alone is the same bit for bit whether or not
+    I_nu is tracked: Kernel 2b recomputes the sweep either way (tracked, the
+    intensity buffer is only an output); untracked, the forward writes no
+    buffer under autograd."""
+    if spherical:
+        alphas, source, ray, corr, weights = _spherical_atmosphere(2, 56, 1000, 20, seed=3)
+    else:
+        alphas, source, ray, corr, weights = _plane_atmosphere()
+    args = [torch.as_tensor(v, device=cuda).to(dtype) for v in (alphas, source, ray, weights)]
+    g_f = torch.randn(args[0].shape, device=cuda, dtype=dtype,
+                      generator=torch.Generator(cuda).manual_seed(2))
+    grads = {}
+    for track in (False, True):
+        a, s = args[0].clone().requires_grad_(), args[1].clone().requires_grad_()
+        f, i = tsolver.raytrace(a, s, args[2], args[3], inward_rays=spherical,
+                                photospheric_correction=corr,
+                                track_individual_intensities=track)
+        assert (i is not None) == track
+        grads[track] = torch.autograd.grad(f, (a, s), g_f)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(grads[False], grads[True]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_formal_solution_grad_checkpointed_outward_matches_plain(cuda, dtype):
+    """At more depths than one frequency's block can hold every entering
+    intensity of (700 in float64, 1,400 in float32, at 20 angles), the
+    outward variant keeps a checkpoint every TRACE_GRAD_SPAN steps and
+    recomputes its segments: against autograd of raytrace_plain at the bars
+    of test_formal_solution_grad_kernel_matches_plain, two launches equal
+    bit for bit."""
+    n_depth = 700 if dtype == torch.float64 else 1400
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    assert tsolver.trace_grad_tile(n_depth, 20, itemsize, False)[1] == tsolver.TRACE_GRAD_SPAN
+    alphas, source, ray, corr, weights = _plane_atmosphere(n_depth=n_depth, n_nu=64)
+    args = [torch.as_tensor(v, device=cuda).to(dtype) for v in (alphas, source, ray, weights)]
+    a, s = args[0].clone().requires_grad_(), args[1].clone().requires_grad_()
+    g_f = torch.randn(a.shape, device=cuda, dtype=dtype,
+                      generator=torch.Generator(cuda).manual_seed(4))
+
+    def kernel_grads():
+        f, _ = tsolver.raytrace(a, s, args[2], args[3])
+        return torch.autograd.grad(f, (a, s), g_f)
+
+    before = tsolver.raytrace_grad_cuda.launches
+    first, second = kernel_grads(), kernel_grads()
+    torch.cuda.synchronize()
+    assert tsolver.raytrace_grad_cuda.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    ref = tsolver.raytrace_plain_backward(a.detach(), s.detach(), args[2], args[3], g_f)
+    if dtype == torch.float64:
+        for k, p in zip(first, ref):
+            assert _row_err(k, p, axis=1) <= 1e-9
+        return
+    exact = tsolver.raytrace_plain_backward(a.detach().double(), s.detach().double(),
+                                            args[2].double(), args[3].double(), g_f.double())
+    for k, p, e in zip(first, ref, exact):
+        assert (k.double() - e).norm() <= 1.5 * (p.double() - e).norm()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("spherical", [False, True], ids=["plane", "spherical"])
+def test_formal_solution_grad_layout_is_the_wrappers(cuda, dtype, spherical):
+    """Kernel 2b's own shared-memory layout (its checkpoint spans and chunks
+    included) is solver.trace_grad_shared's at the tiles and spans
+    trace_grad_tile picks and at others, and a T no block can hold raises
+    before any launch."""
+    from stardis_tpu_torch import _cuda
+
+    shared = _cuda.load("formal_solution_grad").formal_solution_grad_shared_bytes
+    shared.restype = ctypes.c_longlong
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    spans = (tsolver.TRACE_GRAD_SPAN,) if spherical else (1, tsolver.TRACE_GRAD_SPAN)
+    for n_depth, n_theta in ((56, 20), (13, 3), (2, 1), (56, 100), (9, 7), (700, 20),
+                             (1400, 20)):
+        if itemsize == 8 and n_depth == 1400:
+            continue
+        tile, span, nbytes = tsolver.trace_grad_tile(n_depth, n_theta, itemsize, spherical)
+        assert shared(n_depth, n_theta, tile, tsolver.TRACE_GRAD_CHUNK, span, itemsize,
+                      int(spherical)) == nbytes
+        for f in (1, 3, tile):
+            for sp in spans:
+                assert shared(n_depth, n_theta, f, tsolver.TRACE_GRAD_CHUNK, sp, itemsize,
+                              int(spherical)) == tsolver.trace_grad_shared(
+                                  n_depth, n_theta, f, sp, itemsize, spherical)
+    n = tsolver.TRACE_MAX_THREADS + 1
+    a = torch.ones((1, 4, 16), dtype=dtype, device=cuda)
+    before = getattr(tsolver.raytrace_grad_cuda, "inward_launches" if spherical else "launches")
+    with pytest.raises(ValueError, match="formal_solution_grad kernel"):
+        tsolver.raytrace_grad_cuda(a, a, torch.ones((1, 3, n), dtype=dtype, device=cuda),
+                                   torch.ones(n, dtype=dtype, device=cuda),
+                                   torch.ones(1, dtype=dtype, device=cuda), a, None, spherical)
+    assert getattr(tsolver.raytrace_grad_cuda,
+                   "inward_launches" if spherical else "launches") == before

@@ -207,19 +207,30 @@ def test_cuda_device_without_gpu_raises(tmp_path):
 
 def test_tf32_switch_is_scoped_to_the_bf_product(tmp_path, monkeypatch):
     """run_simulation turns TF32 off for the bf product only and leaves the
-    process-wide switch as it found it."""
+    process-wide switch as it found it: the switch is read at the product
+    itself (util.matmul scopes it around the product, its backward too)."""
     from stardis_tpu_torch import pipeline as tpipe
     from stardis_tpu_torch.base import parse_config_to_model
     from stardis_tpu_torch.opacities import continuum as tcont
 
-    seen = []
+    seen, inside = [], []
     real_bf = tcont.calc_alpha_bf_hydrogenic
+    real_matmul = torch.Tensor.__matmul__
 
     def spy(*args, **kwargs):
-        seen.append(torch.backends.cuda.matmul.allow_tf32)
-        return real_bf(*args, **kwargs)
+        inside.append(True)
+        try:
+            return real_bf(*args, **kwargs)
+        finally:
+            inside.pop()
+
+    def product(a, b):
+        if inside:
+            seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return real_matmul(a, b)
 
     monkeypatch.setattr(tcont, "calc_alpha_bf_hydrogenic", spy)
+    monkeypatch.setattr(torch.Tensor, "__matmul__", product)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     config, adata, model = parse_config_to_model(_base_config(tmp_path))
     nus = tu.Quantity(np.arange(6560.0, 6562.0, 0.5), tu.AA).to(tu.Hz, tu.spectral()).value

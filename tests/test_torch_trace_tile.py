@@ -267,12 +267,13 @@ def test_trace_tile_rejects_what_a_block_cannot_hold(n_depth, n_theta):
 
 @pytest.mark.parametrize("inward", [False, True], ids=["plane", "spherical"])
 def test_intensity_buffer_only_where_it_is_read(monkeypatch, inward):
-    """raytrace_cuda's autograd plumbing, with the launch replaced by the
-    plain version: the buffer is written (``store``) when I_nu is tracked or
-    autograd records a gradient of alphas or source, and not otherwise;
-    untracked, the Function's second output is empty or non-differentiable
-    and raytrace_cuda returns None; the gradients equal autograd of
-    raytrace_plain, through F_nu and through a tracked I_nu."""
+    """raytrace_cuda's autograd plumbing, with the launches replaced by the
+    plain versions: the buffer is written (``store``) when I_nu is tracked
+    and not otherwise, under autograd too (Kernel 2b recomputes the sweep
+    and is handed no buffer); untracked, the Function's second output is
+    empty and non-differentiable and raytrace_cuda returns None; the
+    gradients equal autograd of raytrace_plain, through F_nu and through a
+    tracked I_nu."""
     geometry = "spherical" if inward else "plane"
     alphas, source, ray, weights, corr, _ = _inputs(geometry, 3, torch.float64)
     stores = []
@@ -282,8 +283,8 @@ def test_intensity_buffer_only_where_it_is_read(monkeypatch, inward):
         f, i = tsolver.raytrace_plain(a, s, r, w, inward_rays, c, True)
         return f, (i if store else None)
 
-    def fake_grad(a, s, r, w, c, i, g_f, g_i, inward_rays):
-        assert i.shape == (*a.shape, len(w))
+    def fake_grad(a, s, r, w, c, g_f, g_i, inward_rays):
+        assert g_i is None or g_i.shape == (*a.shape, len(w))
         return tsolver.raytrace_plain_backward(a, s, r, w, g_f, g_i, inward_rays, c)
 
     monkeypatch.setattr(tsolver, "_launch_trace", fake_launch)
@@ -308,12 +309,12 @@ def test_intensity_buffer_only_where_it_is_read(monkeypatch, inward):
     for track in (False, True):
         a, s = alphas.clone().requires_grad_(), source.clone().requires_grad_()
         f, i = tsolver.raytrace_cuda(a, s, ray, weights, track_individual_intensities=track, **kw)
-        assert stores[-1] is True and (i is not None) == track
+        assert stores[-1] is track and (i is not None) == track
         outs, grads = ([f, i], [g_f, g_i]) if track else ([f], [g_f])
         ours = torch.autograd.grad(outs, (a, s), grads)
         ref = tsolver.raytrace_plain_backward(alphas, source, ray, weights, g_f,
                                               g_i if track else None, **kw)
         assert all(torch.equal(x, y) for x, y in zip(ours, ref))
     s = source.clone().requires_grad_()
-    tsolver.raytrace_cuda(alphas, s, ray, weights, **kw)
-    assert stores[-1] is True
+    f, _ = tsolver.raytrace_cuda(alphas, s, ray, weights, **kw)
+    assert stores[-1] is False and f.requires_grad
