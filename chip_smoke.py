@@ -136,15 +136,35 @@ Phases (any failure exits non-zero and prints no result):
      kernel path at 1e-9, the float32 main path at 1e-5 of the member's
      largest); and the peak memory of a segmented run at 250k points, K = 1
      and K = 4, forward only and with its backward, beside util.memory's
-     forward-only estimate.
+     forward-only estimate;
+ 14. the JAX package's golden stores (tests/golden/solar_halpha.npz and
+     solar_nad_plasma.npz, read with util.regression.RegressionData): the
+     configurations of tests/test_golden_regression.py and
+     tests/test_golden_plasma.py run on the card, every pinned array held
+     in float64 at the stores' rtol 1e-6 and in float32 at
+     util.regression's float32 bars (the mixed bound of
+     tests/test_f32_consistency.py for [D, N] grids and spectra, 1e-4 for
+     partition functions, 5e-5 relative above 1e-30 of each depth's
+     largest value for per-depth densities and factors); each array's
+     worst error beside its bar;
+ 15. a MESA model (80 shells, io.synthetic.write_mesa_file) and Sim100AA's
+     100k lines written as VALD long and short text (17 significant
+     digits): both files parsed by the native (g++) parser and by the
+     Python one, each column equal to the in-memory list bit for bit, the
+     host parse times; run_stardis(device="cuda", float32) with
+     input_model.type mesa and opacity.line.vald_linelist.fname on
+     Sim100AA's grid: F_nu finite and positive and equal bit for bit to the
+     same run with the lines handed over in memory, both kernels launched,
+     warm wall and device-busy share; the shortlist sets its flag and runs;
+     at 10k lines the kernel path against the all-plain path (rtol 1e-4).
 
 The kernels build in parallel (one nvcc per source).  The last line of
 standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 the line before it is the card's name and power limit, and the line
 before that holds each kernel's launches (summed over the main paths of
-phases 5, 7-12 and 13; the CLI runs in a process of its own and is not
-counted), error, times and bound (the larger of the operations
+phases 5, 7-12, 13, 14 and 15; the CLI runs in a process of its own and is
+not counted), error, times and bound (the larger of the operations
 over the float32 peak and the bytes over the memory rate of an H100 SXM,
 from this run's inputs); every entry also holds yardstick_bound_ms, the
 bound by its kernel's first design's operation count; Kernel 2's two and
@@ -166,6 +186,10 @@ SIM100AA_LAMBDA = (6500.0, 6600.0, 0.01)  # AA: 10,000 points
 N_LINES = 100_000
 N_LINES_PLAIN_CHECK = 10_000
 N_LINES_KERNEL_CHECK = 5_000
+# phase 14: the JAX package's committed golden stores (tests/golden/)
+GOLDEN_STORES = ("solar_halpha", "solar_nad_plasma")
+# phase 15: the MESA sun's shells (write_mesa_file's default, tests/test_mesa.py's)
+MESA_SHELLS = 80
 GIANT = {"teff": 4000.0, "logg": 2.0, "spherical": True, "radius_cm": 2e12}
 GIANT_MOL_LINES = 20_000
 GIANT_MOL_LINES_PLAIN_CHECK = 2_000
@@ -2422,6 +2446,142 @@ def main():
         del dplan, d_consts
     except Exception as exc:  # noqa: BLE001
         failures.append(f"differentiated segmented memory phase: {exc!r}")
+
+    # --- 14. the JAX package's golden stores, run on the card ------------------
+    # the configurations of tests/test_golden_regression.py and
+    # tests/test_golden_plasma.py on this script's MARCS sun (the stores'
+    # own); float64 at the stores' rtol, float32 at util.regression's bars
+    try:
+        from stardis_tpu_torch.util.regression import (
+            GOLDEN_RTOL,
+            RegressionData,
+            f32_kind,
+            f32_ratio,
+            golden_arrays,
+            golden_ratio,
+        )
+
+        golden_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden")
+        reset_counts()
+        for key in GOLDEN_STORES:
+            store = RegressionData(golden_dir, key, rtol=GOLDEN_RTOL)
+            for dtype in (torch.float64, torch.float32):
+                arrays = golden_arrays(key, model_path, "cuda", dtype)
+                if sorted(arrays) != sorted(store.keys()):
+                    failures.append(f"golden {key}: arrays {sorted(arrays)} against the "
+                                    f"store's {sorted(store.keys())}")
+                    continue
+                ratios = {}
+                for name, value in arrays.items():
+                    ref = store[name]
+                    if dtype == torch.float64:
+                        ratios[name] = (f"rtol {GOLDEN_RTOL:g}", golden_ratio(value, ref))
+                    else:
+                        ratios[name] = (f32_kind(name), f32_ratio(name, value, ref))
+                bad = {k: v for k, v in ratios.items() if not v[1] <= 1.0}
+                log(f"golden {key} on the card, {str(dtype)[6:]}: worst error / bar by array "
+                    f"(bar): " + ", ".join(f"{k} {r:.3e} ({bar})" for k, (bar, r) in
+                                           sorted(ratios.items())))
+                if bad:
+                    failures.append(f"golden {key} {dtype}: beyond the bar: {bad}")
+        launches = path_launches["golden stores"] = read_counts()
+        if launches["line_opacity"] < 1 or launches["formal_solution"] < 1:
+            failures.append(f"golden stores: a kernel was not launched: {launches}")
+    except Exception as exc:  # noqa: BLE001
+        failures.append(f"golden store phase: {exc!r}")
+
+    # --- 15. a MESA model and a VALD text line list at Sim100AA's width -------
+    try:
+        from stardis_tpu_torch import native
+        from stardis_tpu_torch.io.synthetic import write_mesa_file, write_vald_linelist
+
+        mesa_path = os.path.join(tmp.name, "sun_mesa.mod")
+        write_mesa_file(mesa_path, n_shells=MESA_SHELLS)
+        lines = synth_linelist(build_builtin_atom_data(30), N_LINES).linelist_atoms
+        vald = {"long": os.path.join(tmp.name, "vald_long.txt"),
+                "short": os.path.join(tmp.name, "vald_short.txt")}
+        t0 = time.perf_counter()
+        write_vald_linelist(vald["long"], lines)
+        write_vald_linelist(vald["short"], lines, shortlist=True)
+        log(f"MESA+VALD: wrote {MESA_SHELLS} MESA shells and {N_LINES} lines as long and "
+            f"short VALD text ({time.perf_counter() - t0:.2f} s)")
+        t0 = time.perf_counter()
+        native._load_library()  # g++ at first use, kept out of the parse times
+        log(f"MESA+VALD: native parser built and loaded in {time.perf_counter() - t0:.2f} s")
+        for form, path in vald.items():
+            for use_native in (True, False):
+                t0 = time.perf_counter()
+                table, is_short = native.read_vald_linelist(path, use_native=use_native)
+                parse_s = time.perf_counter() - t0
+                same = all(np.array_equal(table[c], lines[c]) for c in table.columns)
+                log(f"MESA+VALD: {form} file parsed by {native.LAST_PARSER} in {parse_s:.3f} s "
+                    f"(host); {len(table)} lines, shortlist {is_short}, columns equal to the "
+                    f"in-memory list bit for bit: {same}")
+                want = "native" if use_native else "python"
+                if not (same and native.LAST_PARSER == want and len(table) == N_LINES
+                        and is_short == (form == "short")):
+                    failures.append(f"VALD {form} parse by {want}: parser "
+                                    f"{native.LAST_PARSER}, equal {same}, short {is_short}")
+
+        def mesa_config(vald_path=None):
+            cfg = sim100aa_config(mesa_path)
+            cfg["input_model"]["type"] = "mesa"
+            if vald_path is not None:
+                cfg["opacity"]["line"]["vald_linelist"]["fname"] = vald_path
+            return cfg
+
+        def file_run(form="long"):
+            out = run_stardis(mesa_config(vald[form]), lam_q, device="cuda",
+                              dtype=torch.float32)
+            torch.cuda.synchronize()
+            return out
+
+        file_run()  # first call: the parser's build and allocator warm-up
+        reset_counts()
+        t0 = time.perf_counter()
+        spec = file_run().spectrum_nu.value
+        wall = time.perf_counter() - t0
+        launches = path_launches["MESA+VALD"] = read_counts()
+        mem_adata = build_builtin_atom_data(30, include_linelists=True, include_molecules=True)
+        mem_adata.linelist_atoms = lines
+        spec_mem = run_stardis(mesa_config(), lam_q, device="cuda", dtype=torch.float32,
+                               atom_data=mem_adata).spectrum_nu.value
+        same = bool(np.array_equal(spec, spec_mem))
+        log(f"MESA+VALD: run_stardis(device='cuda', float32), {MESA_SHELLS} shells, "
+            f"{N_LINES} lines from the VALD file: warm wall {wall:.3f} s (parse included); "
+            f"launches {launches}; F_nu[surface] min {spec.min():.4e}, max {spec.max():.4e}; "
+            f"equal bit for bit to the lines handed over in memory: {same}")
+        if not (spec.shape == (len(lams),) and np.isfinite(spec).all() and (spec > 0).all()
+                and same):
+            failures.append(f"MESA+VALD F_nu not finite and positive, or file != memory ({same})")
+        if launches["line_opacity"] < 1 or launches["formal_solution"] < 1:
+            failures.append(f"MESA+VALD: a kernel was not launched: {launches}")
+        short_cfg = parse_config_to_model(mesa_config(vald["short"]))[0]
+        spec_short = file_run("short").spectrum_nu.value
+        flagged = bool(short_cfg.opacity.line.vald_linelist.shortlist)
+        log(f"MESA+VALD shortlist: shortlist flag set {flagged}; F_nu[surface] min "
+            f"{spec_short.min():.4e}, max {spec_short.max():.4e}")
+        if not (flagged and np.isfinite(spec_short).all() and (spec_short > 0).all()):
+            failures.append(f"MESA+VALD shortlist: flag {flagged}, F_nu not finite and positive")
+        p_wall, busy, ops = device_busy(torch, file_run)
+        log(f"MESA+VALD profiled run: wall {p_wall:.4f} s, device busy {busy * 1e3:.2f} ms "
+            f"({busy / p_wall:.1%} of the wall), {ops} device ops")
+
+        check_adata = synth_linelist(build_builtin_atom_data(30, include_linelists=True),
+                                     N_LINES_PLAIN_CHECK)
+        config, check_adata, model = parse_config_to_model(mesa_config(), atom_data=check_adata)
+        mplan = build_simulation_plan(config, check_adata, model, nus)
+        fk = run_simulation(mplan, device=dev, dtype=torch.float32)[0]
+        fp = run_simulation(mplan, device=dev, dtype=torch.float32, plain=True)[0]
+        torch.cuda.synchronize()
+        rel, zeros_ok = rel_err(fk, fp)
+        log(f"MESA+VALD at {N_LINES_PLAIN_CHECK} lines: kernel path vs all-plain path F_nu "
+            f"max rel err {rel:.3e} (bound 1e-4)")
+        if not (rel <= 1e-4 and zeros_ok and torch.isfinite(fk).all()):
+            failures.append(f"MESA+VALD kernel vs plain rel err {rel:.3e}")
+        del mplan
+    except Exception as exc:  # noqa: BLE001
+        failures.append(f"MESA+VALD phase: {exc!r}")
     tmp.cleanup()
 
     if failures:

@@ -17,8 +17,10 @@ and then ``stage_spectrum``, ``spectrum_batch``, ``parallel.batch.run_batch``
 or ``parallel.sharding.segmented_spectrum``, post-processes, and calls
 ``loss.backward()``; host copies (``run_stardis``' output, segments with
 ``collect_opacities``) carry no gradient and raise under autograd.  A
-NumPy host phase (config, MARCS model, builtin atom and molecular data,
-line selection, file tables), a torch LTE solve and line quantities, and
+NumPy host phase (config, MARCS and MESA models, builtin atom and
+molecular data or an HDF5 atom-data store, VALD text line lists through
+a C++ parser built by g++ at first use, line selection, file tables; the
+HDF5 output in ``util.hdf``), a torch LTE solve and line quantities, and
 four hand-written CUDA kernels for sm_90a — line-opacity accumulation over
 any pixel range of the grid (csrc/line_opacity.cu) and its backward
 (csrc/line_opacity_grad.cu), the formal solution with its spherical

@@ -19,9 +19,8 @@ synthesizes them with per-chunk checkpoints into ``--scan-out``
     python -m stardis_tpu_torch config.json --lambda 4000:7000:0.02 \\
         --grid 'models/*.mod' --scan-out scan_dir --batch-size 8
 
-``--output`` (HDF5) is not ported yet (ROADMAP.md Queue 1 item 11, other
-inputs and the HDF output writer); ``--compile-cache`` belongs to XLA and
-has no counterpart.
+``--output`` writes the run to an HDF5 file (``util.hdf.output_to_hdf``;
+needs h5py).  ``--compile-cache`` belongs to XLA and has no counterpart.
 """
 
 from __future__ import annotations
@@ -69,7 +68,8 @@ def main(argv=None):
     )
     parser.add_argument(
         "--output", metavar="FILE.h5",
-        help="HDF5 output: not ported yet (ROADMAP.md Queue 1 item 11)",
+        help="write spectra (+ model/plasma/radiation field when the config's "
+        "result_options return them) to an HDF5 file",
     )
     parser.add_argument(
         "--ascii", metavar="FILE.txt",
@@ -112,10 +112,6 @@ def main(argv=None):
             raise SystemExit(
                 f"--segments expects an integer or 'auto', got {args.segments!r}"
             )
-    if args.output:
-        from .pipeline import not_ported
-
-        raise not_ported("--output (HDF5)", "item 11, other inputs and the HDF output writer")
     lambdas_aa = _parse_lambda(args.lambda_spec)
     overrides = dict(_parse_override(item) for item in args.overrides)
 
@@ -148,6 +144,11 @@ def main(argv=None):
         f"({lambdas_aa[0]:.2f}-{lambdas_aa[-1]:.2f} AA) on {device}; "
         f"F_lambda range [{f_lam.min():.4e}, {f_lam.max():.4e}] erg/s/cm^2/AA"
     )
+    if args.output:
+        from .util.hdf import output_to_hdf
+
+        output_to_hdf(sim, args.output)
+        print(f"wrote {args.output}")
     if args.ascii:
         np.savetxt(args.ascii, np.column_stack([lam, f_lam]),
                    header="wavelength_AA  F_lambda_erg_s_cm2_AA")

@@ -22,8 +22,11 @@ equal length.
 * ``molecule_data``   : ``MoleculeData``, Barklem & Collet 2016-layout
                         molecular tables
 
-HDF files and downloads ("other inputs", ROADMAP Queue 1) are not ported
-yet.
+``AtomData.to_hdf`` / ``from_hdf`` write and read the JAX package's
+``stardis_tpu_atom_data_v1`` HDF5 layout (h5py, imported only by those
+two calls); carsus stores are converted to it with the JAX package's
+``stardis_tpu.atom_data.convert``.  Downloading published stores is not
+ported (it needs the network).
 """
 
 from __future__ import annotations
@@ -149,3 +152,132 @@ class AtomData:
         if self.linelist_atoms is not None:
             self.linelist_atoms = keep(self.linelist_atoms)
         return self
+
+    # ------------------------------------------------------------------
+    # HDF5 (h5py), the JAX package's stardis_tpu_atom_data_v1 layout
+    # ------------------------------------------------------------------
+    def to_hdf(self, path):
+        import h5py
+
+        def put(grp, name, data):
+            data = np.asarray(data)
+            if data.dtype.kind in ("O", "U"):
+                data = np.array(data, dtype="S16")
+            grp.create_dataset(name, data=data)
+
+        with h5py.File(path, "w") as f:
+            f.attrs["format"] = HDF_FORMAT
+            grp = f.create_group("atom_data")
+            grp.create_dataset("atomic_number", data=self.atom_data.atomic_number)
+            grp.create_dataset("symbol", data=np.array(self.atom_data.symbol, dtype="S8"))
+            grp.create_dataset("mass", data=self.atom_data.mass)
+            for name, table, cols in (
+                ("ionization_data", self.ionization_data,
+                 ("atomic_number", "ion_number", "ionization_energy")),
+                ("levels", self.levels,
+                 ("atomic_number", "ion_number", "level_number", "energy", "g")),
+                ("lines", self.lines, LINE_COLUMNS),
+            ):
+                grp = f.create_group(name)
+                for col in cols:
+                    grp.create_dataset(col, data=table[col])
+            f["levels"].create_dataset(
+                "metastable", data=np.asarray(self.levels.metastable).astype(bool))
+
+            for name, ll in (("linelist_atoms", self.linelist_atoms),
+                             ("linelist_molecules", self.linelist_molecules)):
+                if ll is not None:
+                    grp = f.create_group(name)
+                    for col, data in ll.columns.items():
+                        put(grp, col, data)
+
+            md = self.molecule_data
+            if md is not None:
+                grp = f.create_group("molecule_data")
+                for name, temps, values in (
+                    ("equilibrium_constants", md.equilibrium_temperatures,
+                     md.log_equilibrium_constants),
+                    ("partition_functions", md.partition_temperatures,
+                     md.partition_functions),
+                ):
+                    sub = grp.create_group(name)
+                    put(sub, "molecule", md.names)
+                    sub.create_dataset("temperatures", data=np.asarray(temps, dtype=float))
+                    sub.create_dataset("values", data=values)
+                sub = grp.create_group("dissociation_energies")
+                put(sub, "molecule", md.names)
+                put(sub, "Ion1", md.ion1)
+                put(sub, "Ion2", md.ion2)
+                sub.create_dataset("dissociation_energy", data=md.dissociation_energies)
+
+    @classmethod
+    def from_hdf(cls, path):
+        """Read a store in the stardis_tpu_atom_data_v1 layout: every table
+        with the JAX package's ``from_hdf`` columns and row order, byte
+        strings decoded; the molecular tables' rows follow the equilibrium
+        constants' molecule order, as the JAX plasma looks them up."""
+        import h5py
+
+        def decoded(data):
+            return np.array([s.decode() for s in data]) if data.dtype.kind == "S" else data
+
+        def table(grp, cols=None):
+            return Table({c: decoded(grp[c][:]) for c in (cols or grp)})
+
+        with h5py.File(path, "r") as f:
+            if f.attrs.get("format", "") != HDF_FORMAT:
+                raise ValueError(
+                    f"{path}: not a stardis_tpu atom-data file. carsus/pytables "
+                    "files are not readable without the 'tables' package; "
+                    "convert with stardis_tpu.atom_data.convert."
+                )
+            atom_data = table(f["atom_data"], ("atomic_number", "symbol", "mass"))
+            ionization_data = table(
+                f["ionization_data"], ("atomic_number", "ion_number", "ionization_energy"))
+            levels = table(f["levels"], ("atomic_number", "ion_number", "level_number",
+                                         "energy", "g", "metastable"))
+            lines = table(f["lines"])
+            linelists = [table(f[name]) if name in f else None
+                         for name in ("linelist_atoms", "linelist_molecules")]
+            molecule_data = None
+            if "molecule_data" in f:
+                molecule_data = _read_molecule_data(f["molecule_data"], decoded)
+        return cls(atom_data, ionization_data, levels, lines, *linelists, molecule_data)
+
+
+#: the ``format`` attribute of an atom-data store
+HDF_FORMAT = "stardis_tpu_atom_data_v1"
+#: the columns of the ``lines`` table that a store holds
+LINE_COLUMNS = ("atomic_number", "ion_number", "level_number_lower",
+                "level_number_upper", "nu", "f_lu", "A_ul", "wavelength_cm")
+
+
+def _read_molecule_data(grp, decoded):
+    """MoleculeData from a store's molecule_data group, rows in the
+    equilibrium constants' molecule order."""
+    eq, pf, de = (grp[k] for k in ("equilibrium_constants", "partition_functions",
+                                   "dissociation_energies"))
+    names = [str(m) for m in decoded(eq["molecule"][:])]
+
+    def rows(sub):
+        order = {m: i for i, m in enumerate(decoded(sub["molecule"][:]))}
+        missing = [m for m in names if m not in order]
+        if missing:
+            raise KeyError(f"molecule_data/{sub.name}: no rows for {missing}")
+        return np.array([order[m] for m in names], dtype=np.int64)
+
+    pf_rows, de_rows = rows(pf), rows(de)
+    energy_cols = [c for c in de if c not in ("molecule", "Ion1", "Ion2")]
+    energies = (de[energy_cols[0]][:][de_rows].astype(float) if energy_cols
+                else np.full(len(names), np.nan))
+    return MoleculeData(
+        names=names,
+        equilibrium_temperatures=eq["temperatures"][:],
+        log_equilibrium_constants=eq["values"][:],
+        partition_temperatures=pf["temperatures"][:],
+        partition_functions=pf["values"][:][pf_rows],
+        ion1=[str(s) for s in decoded(de["Ion1"][:])[de_rows]],
+        ion2=[str(s) for s in decoded(de["Ion2"][:])[de_rows]],
+        dissociation_energies=energies,
+    )
+

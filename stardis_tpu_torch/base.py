@@ -14,6 +14,7 @@ from .atom_data import AtomData, build_builtin_atom_data
 from .io.abundances import rescale_nuclide_mass_fractions
 from .io.config import load_config
 from .io.marcs import read_marcs_model
+from .io.mesa import read_mesa_model
 from .pipeline import (
     build_simulation_plan,
     host_array,
@@ -26,34 +27,58 @@ from .radiation_field.solver import gauss_legendre_thetas
 
 logger = logging.getLogger(__name__)
 
+#: the published stores the JAX package downloads by name
+#: (``stardis_tpu/atom_data/download.py``)
+KNOWN_ATOM_DATA = ("kurucz_cd23_chianti_H_He",)
+
 
 def _load_atom_data(spec: str) -> AtomData:
     """``builtin`` / ``builtin:<Zmax>``: the generated dataset, with its
-    linelist and molecular tables."""
+    linelist and molecular tables; a path: a stardis_tpu HDF store
+    (``AtomData.from_hdf``).  The published store names that the JAX
+    package downloads are not ported: they need the network."""
     if spec.startswith("builtin"):
         z_max = int(spec.split(":", 1)[1]) if ":" in spec else 30
         return build_builtin_atom_data(
             max_atomic_number=z_max, include_linelists=True, include_molecules=True
         )
-    raise not_ported(f"atom data {spec!r} (HDF and downloaded stores)", "other inputs")
+    if spec in KNOWN_ATOM_DATA:
+        raise not_ported(
+            f"downloaded atom data {spec!r} (pass the path of a converted store)",
+            "not queued, atom_data/download.py needs the network",
+        )
+    return AtomData.from_hdf(spec)
 
 
 def read_stellar_model(config, adata, fname=None):
     """One stellar model by the config's ``input_model`` rules."""
     im = config.input_model
     path = Path(fname) if fname is not None else Path(im.fname)
-    if im.type != "marcs":
-        raise not_ported("MESA models", "other inputs")
-    raw = read_marcs_model(path, gzipped=im.gzipped)
-    stellar_model = raw.to_stellar_model(
-        adata,
-        final_atomic_number=int(im.final_atomic_number),
-        composition_source=im.composition_source,
-        helium_mass_frac_Y=im.composition_Y,
-        heavy_metal_mass_frac_Z=im.composition_Z,
-    )
-    if config.opacity.line.disable_microturbulence:
-        stellar_model.microturbulence = stellar_model.microturbulence * 0.0
+    if im.type == "marcs":
+        raw = read_marcs_model(path, gzipped=im.gzipped)
+        stellar_model = raw.to_stellar_model(
+            adata,
+            final_atomic_number=int(im.final_atomic_number),
+            composition_source=im.composition_source,
+            helium_mass_frac_Y=im.composition_Y,
+            heavy_metal_mass_frac_Z=im.composition_Z,
+        )
+        if config.opacity.line.disable_microturbulence:
+            stellar_model.microturbulence = stellar_model.microturbulence * 0.0
+    elif im.type == "mesa":
+        raw = read_mesa_model(path)
+        if im.truncate_to_shell != -99:
+            if im.truncate_to_shell < 0:
+                raise ValueError(
+                    f"{im.truncate_to_shell} shells requested for mesa "
+                    "truncation; -99 means no truncation."
+                )
+            raw.truncate_model(int(im.truncate_to_shell))
+        stellar_model = raw.to_stellar_model(
+            adata, final_atomic_number=int(im.final_atomic_number)
+        )
+    else:
+        raise ValueError("Model type must be 'marcs' or 'mesa'")
 
     rescale = im.nuclide_rescaling_dict
     rescale = rescale.to_dict() if hasattr(rescale, "to_dict") else dict(rescale)
@@ -74,8 +99,15 @@ def parse_config_to_model(config, add_config_dict=None, atom_data=None):
     config = load_config(config, add_config_dict)
     adata = atom_data if atom_data is not None else _load_atom_data(config.atom_data)
     stellar_model = read_stellar_model(config, adata)
-    if config.opacity.line.vald_linelist.get("fname"):
-        raise not_ported("opacity.line.vald_linelist.fname", "other inputs")
+    vald_cfg = config.opacity.line.vald_linelist
+    if vald_cfg.get("fname"):
+        from .native import read_vald_linelist
+
+        logger.info("Parsing VALD linelist %s", vald_cfg.fname)
+        adata.linelist_atoms, is_short = read_vald_linelist(vald_cfg.fname)
+        if is_short and not vald_cfg.shortlist:
+            logger.info("VALD file detected as shortlist format")
+            config.set_config_item("opacity.line.vald_linelist.shortlist", True)
     n_elements = len(stellar_model.composition.atomic_numbers)
     adata.prepare_atom_data(
         np.arange(1, min(n_elements, int(config.input_model.final_atomic_number)) + 1)
@@ -119,6 +151,11 @@ class StellarPlasma:
         if name in ("_state", "_plan"):
             raise AttributeError(name)
         return getattr(self._state, name)
+
+    def _asdict(self):
+        """The PlasmaState's fields by name, what ``util.hdf.output_to_hdf``
+        writes."""
+        return self._state._asdict()
 
     @property
     def molecule_number_density(self):

@@ -1,5 +1,5 @@
-"""Synthetic MARCS-format atmosphere generator (a copy of
-``stardis_tpu/io/synthetic.py`` without the MESA writer).
+"""Synthetic MARCS- and MESA-format atmosphere generators (a copy of
+``stardis_tpu/io/synthetic.py``).
 
 The reference ships real MARCS files (docs/quickstart/sun.mod); they are
 not redistributed here, so tests and benchmarks build
@@ -22,6 +22,7 @@ from pathlib import Path
 import numpy as np
 
 from ..constants import AMU_CGS, K_B_CGS
+from ..util.species import ELEMENT_SYMBOLS
 from .abundances import ASPLUND_2009
 
 
@@ -143,6 +144,79 @@ def write_marcs_file(
         )
     with open(path, "w") as fh:
         fh.write("\n".join(lines) + "\n")
+    return path
+
+
+def write_mesa_file(path, teff=5777.0, logg=4.44, n_shells=80,
+                    radius_cm=6.957e10, mass_msun=1.0):
+    """Write a synthetic MESA ``.mod`` profile (surface layers of a star).
+
+    Shells are ordered outermost-first, as MESA writes them; the structure
+    reuses the gray-atmosphere solution.  Numbers use MESA's Fortran
+    D-exponent convention so the reader's D->E handling is exercised.
+    """
+
+    def dfmt(x):
+        return f"{x:.10E}".replace("E", "D")
+
+    s = gray_atmosphere_structure(teff=teff, logg=logg, n_depth=n_shells)
+    # surface-first ordering; radius decreases inward
+    r = radius_cm - (s["depth"] - s["depth"][0])
+    lines = []
+    lines.append("! synthetic MESA model (stardis_tpu)")
+    lines.append("")
+    lines.append("          version_number   11701")
+    lines.append(f"          M/Msun           {dfmt(mass_msun)}")
+    lines.append("          model_number     1000")
+    lines.append(f"          star_age         {dfmt(4.6e9)}")
+    lines.append(f"          initial_z        {dfmt(0.02)}")
+    lines.append(f"          n_shells         {n_shells}")
+    lines.append("          net_name         'basic.net'")
+    lines.append("          species          8")
+    lines.append(f"          Teff             {dfmt(teff)}")
+    lines.append("")
+    # pad so the data header lands at the reader's fixed offset (row 24)
+    while len(lines) < 23:
+        lines.append("!")
+    header = ["zone", "lnd", "lnT", "lnR", "L", "dq"]
+    lines.append(" ".join(f"{h:>24s}" for h in header))
+    for k in range(n_shells):
+        row = [
+            f"{k + 1:5d}",
+            dfmt(np.log(s["rho"][k])),
+            dfmt(np.log(s["temperature"][k])),
+            dfmt(np.log(r[k])),
+            dfmt(3.828e33),
+            dfmt(1.0 / n_shells),
+        ]
+        lines.append(" ".join(f"{v:>24s}" for v in row))
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return path
+
+
+def write_vald_linelist(path, linelist, shortlist=False):
+    """Write a ``linelist_atoms`` Table (e.g. ``opacities.lines.
+    synth_linelist``'s) as a VALD3 text export, every number with 17
+    significant digits, so that a parse gives the Table's values back bit
+    for bit.  Long format: species, wavelength [AA], log gf, E_low [eV],
+    J_lo, E_up [eV], J_up, three Lande factors (0) and the rad, stark and
+    waals damping parameters; ``shortlist``: species, wavelength, E_low,
+    log gf, rad, stark, waals."""
+    cols = ("wavelength", "e_low", "log_gf", "rad", "stark", "waals") if shortlist else (
+        "wavelength", "log_gf", "e_low", "j_lo", "e_up", "j_up", None, None, None,
+        "rad", "stark", "waals")
+    header = ("Elm Ion  WL_air(A)  Excit(eV)  log gf*  Rad.  Stark  Waals" if shortlist else
+              "Elm Ion  WL_air(A)  log gf*  E_low(eV)  J lo  E_up(eV)  J up  "
+              "lower  upper  mean  Rad.  Stark  Waals")
+    values = [np.zeros(len(linelist)) if c is None else np.asarray(linelist[c], dtype=float)
+              for c in cols]
+    rows = [header]
+    for i, (z, q) in enumerate(zip(linelist["atomic_number"], linelist["ion_charge"])):
+        species = f"'{ELEMENT_SYMBOLS[int(z) - 1]} {int(q) + 1}',"
+        rows.append(f"{species:<10s}" + "".join(f" {v[i]:.17g}," for v in values))
+    rows.append(" References: synthetic")
+    Path(path).write_text("\n".join(rows) + "\n")
     return path
 
 

@@ -68,3 +68,7 @@ class StellarModel:
         if microturbulence is None:
             microturbulence = u.Quantity(0.0, u.km / u.s)
         self.microturbulence = microturbulence
+
+    @property
+    def no_of_depth_points(self):
+        return np.asarray(self.temperatures).shape[0]

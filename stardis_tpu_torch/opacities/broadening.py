@@ -60,9 +60,11 @@ def calc_gamma_quadratic_stark(
 ):
     """Quadratic Stark (Traving 1960 via Transparency.jl;
     broadening.py:281-360)."""
-    c4_prefactor = (E_ESU**2 * A0_CGS**3) / (
-        36.0 * H_CGS * VACUUM_ELECTRIC_PERMITTIVITY * ion_number**4
-    )
+    # the constants folded in float64 first: e^2 a0^3 (3.4e-44) lies below
+    # float32's smallest normal number, where it keeps one or two digits
+    c4_prefactor = float(
+        E_ESU**2 * A0_CGS**3 / (36.0 * H_CGS * VACUUM_ELECTRIC_PERMITTIVITY)
+    ) / ion_number**4
     c4_term_1 = n_eff_upper * (5.0 * n_eff_upper**2 + 1.0)
     c4_term_2 = n_eff_lower * (5.0 * n_eff_lower**2 + 1.0)
     c4 = c4_prefactor * (c4_term_1**2 - c4_term_2**2)

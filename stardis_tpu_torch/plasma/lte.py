@@ -271,3 +271,20 @@ def solve_lte(temperatures, elemental_number_density, dt: DevicePlasmaTables):
         h2_density=h2,
         h2_plus_density=h2_plus,
     )
+
+
+# accessors of the TARDIS plasma properties that the golden stores pin
+def saha_phi(state: PlasmaState, dt: DevicePlasmaTables):
+    """phi[e, j, d] = 2 (U_{j+1}/U_j) g_electron exp(-beta chi_j), the
+    TARDIS ``phi`` property (n_{j+1} n_e / n_j); 0 for the (e, j) pairs
+    beyond an element's last stage."""
+    log_u = torch.log(state.partition_function)
+    log_phi = _log_phi(dt, log_u, state.beta)
+    phi = torch.exp(log_phi + state.log_g_electron[None, None, :])
+    return torch.where(dt.chi_mask[..., None], phi, torch.zeros_like(phi))
+
+
+def level_boltzmann_factor(state: PlasmaState, dt: DevicePlasmaTables):
+    """g_l exp(-beta E_l) per level and depth, the TARDIS
+    ``level_boltzmann_factor`` (equal to the general one in LTE)."""
+    return dt.level_g[:, None] * torch.exp(-state.beta[None, :] * dt.level_energy[:, None])

@@ -1,7 +1,8 @@
 """``python -m stardis_tpu_torch`` against ``python -m stardis_tpu``, on the
 CPU (--cpu, float64): the ASCII tables of one-shot runs (unsegmented, 3
 segments and 'auto') and of grid scans at 1e-9; --set overrides; the
-errors on bad arguments; --output (HDF5) not ported."""
+errors on bad arguments; --output (HDF5) read back against the JAX CLI's
+file."""
 
 import json
 
@@ -98,8 +99,26 @@ def test_bad_arguments_raise(configs, tmp_path):
               "--scan-out", str(tmp_path / "o"), "--segments", "auto"])
     with pytest.raises(SystemExit, match="--set expects"):
         main([cfg, "--lambda", LAMBDA, "--cpu", "--set", "opacity.rayleigh"])
-    with pytest.raises(NotImplementedError, match="Queue 1: item 11"):
-        main([cfg, "--lambda", LAMBDA, "--cpu", "--output", str(tmp_path / "o.h5")])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main([cfg, "--lambda", LAMBDA])
+
+
+def test_output_writes_hdf_read_back(configs, tmp_path, capsys):
+    """--output writes the spectra to HDF5; read back, they equal the JAX
+    CLI's file at 1e-9 and the ASCII table's columns."""
+    h5py = pytest.importorskip("h5py")
+    ours, ref, table = tmp_path / "ours.h5", tmp_path / "ref.h5", tmp_path / "t.txt"
+    assert jax_main([configs[1], "--lambda", LAMBDA, "--cpu", "--output", str(ref)]) == 0
+    assert main([configs[0], "--lambda", LAMBDA, "--cpu", "--output", str(ours),
+                 "--ascii", str(table)]) == 0
+    assert f"wrote {ours}" in capsys.readouterr().out
+    with h5py.File(ours, "r") as f, h5py.File(ref, "r") as g:
+        assert f.attrs["format"] == g.attrs["format"] == "stardis_tpu_output_v1"
+        assert sorted(f["spectrum"]) == sorted(g["spectrum"]) == [
+            "lambdas", "nus", "spectrum_lambda", "spectrum_nu"]
+        for name in f["spectrum"]:
+            np.testing.assert_allclose(f["spectrum"][name][()], g["spectrum"][name][()],
+                                       rtol=1e-9, err_msg=name)
+        lam, f_lam = f["spectrum/lambdas"][()], f["spectrum/spectrum_lambda"][()]
+    np.testing.assert_array_equal(np.loadtxt(table), np.column_stack([lam, f_lam]))

@@ -23,6 +23,7 @@ from stardis_tpu.io.synthetic import write_marcs_file  # noqa: E402
 from stardis_tpu.pipeline import build_simulation_plan, run_simulation  # noqa: E402
 from stardis_tpu_torch import units as tu  # noqa: E402
 from stardis_tpu_torch.atom_data import build_builtin_atom_data  # noqa: E402
+from stardis_tpu_torch.io.synthetic import write_mesa_file  # noqa: E402
 from stardis_tpu_torch.opacities.lines import synth_linelist  # noqa: E402
 
 RTOL = 1e-9
@@ -146,25 +147,25 @@ def _write_hminus_bf(path):
         (lambda c, d: c["opacity"]["line"].update(window_mode="accuracy"), None),
         (lambda c, d: c["opacity"].update(file={"Hminus_bf": _write_hminus_bf(d / "hm.dat")}),
          "alpha_file_Hminus_bf"),
-        (lambda c, d: c["input_model"].update(type="mesa"), "raises"),
+        (lambda c, d: c["input_model"].update(type="mesa",
+                                               fname=str(write_mesa_file(d / "star.mod"))),
+         None),
     ],
     ids=["molecules", "accuracy", "file", "mesa"],
 )
 def test_out_of_slice_branches_raise(tmp_path, edit, ported_key):
-    """Molecules, accuracy windows and file opacities are in the slice now:
-    those branches run; MESA models still raise naming ROADMAP.md."""
+    """Molecules, accuracy windows, file opacities and MESA models are in
+    the slice now: those branches run."""
     cfg = _base_config(tmp_path)
     cfg["result_options"] = {"return_radiation_field": True, "return_plasma": True}
     edit(cfg, tmp_path)
     lam = tu.Quantity(np.arange(6560.0, 6561.0, 0.5), tu.AA)
-    if ported_key == "raises":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            stardis_tpu_torch.run_stardis(cfg, lam, device="cpu", dtype=torch.float64)
-        return
     out = stardis_tpu_torch.run_stardis(cfg, lam, device="cpu", dtype=torch.float64)
     assert np.isfinite(np.asarray(out.spectrum_nu)).all()
     if ported_key:
         assert ported_key in out.stellar_radiation_field.opacities.opacities_dict
+    if cfg["input_model"]["type"] == "mesa":
+        assert out.stellar_plasma.electron_densities.shape == (80,)
     if cfg["opacity"]["line"].get("include_molecules"):
         densities = out.stellar_plasma.molecule_number_density
         assert "H2" in densities.names and densities.values.shape[1] == 56

@@ -1,8 +1,9 @@
 """The port's NumPy host phase against the JAX package's, exactly: config
 defaults, builtin atom data, MARCS model, plasma tables, selected lines,
 quadrature and geometry of ``build_simulation_plan``; and ``synth_linelist``
-against ``bench_lines.synth_linelist``.  Also: the port imports neither jax,
-stardis_tpu, pandas, PyYAML nor jsonschema."""
+against ``bench_lines.synth_linelist``.  Also: the port, a MESA + VALD-text
+run included, imports neither jax, stardis_tpu, pandas, PyYAML,
+jsonschema, triton nor h5py."""
 
 import dataclasses
 import json
@@ -196,12 +197,37 @@ def test_synthetic_marcs_file_is_identical(tmp_path):
     assert (tmp_path / "a.mod").read_text() == (tmp_path / "b.mod").read_text()
 
 
-def test_port_imports_no_jax_pandas_yaml():
-    code = (
-        "import sys, stardis_tpu_torch, stardis_tpu_torch.pipeline;"
-        "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'stardis_tpu', 'pandas', 'yaml', 'jsonschema', 'triton')];"
-        "print(bad); sys.exit(1 if bad else 0)"
-    )
+def test_port_imports_no_jax_pandas_yaml(tmp_path):
+    """The port's modules, the new inputs' among them, and a MESA model with
+    a VALD text line list run on the CPU import none of jax, stardis_tpu,
+    pandas, PyYAML, jsonschema, triton or h5py."""
+    code = f"""
+import sys
+import numpy as np
+import torch
+import stardis_tpu_torch, stardis_tpu_torch.pipeline
+import stardis_tpu_torch.native, stardis_tpu_torch.io.mesa
+import stardis_tpu_torch.util.hdf, stardis_tpu_torch.util.regression
+from stardis_tpu_torch import units as u
+from stardis_tpu_torch.atom_data import build_builtin_atom_data
+from stardis_tpu_torch.io.synthetic import write_mesa_file, write_vald_linelist
+from stardis_tpu_torch.opacities.lines import synth_linelist
+tmp = {str(tmp_path)!r}
+write_mesa_file(tmp + "/star.mod")
+lines = synth_linelist(build_builtin_atom_data(30), 300, 6500.0, 6502.0).linelist_atoms
+write_vald_linelist(tmp + "/lines.txt", lines)
+cfg = {{"stardis_config_version": 1.0, "atom_data": "builtin:30",
+        "input_model": {{"type": "mesa", "fname": tmp + "/star.mod", "final_atomic_number": 30}},
+        "opacity": {{"bf": {{"H_I": {{}}}}, "line": {{"disable": False, "broadening": ["radiation"],
+                     "vald_linelist": {{"use_linelist": True, "fname": tmp + "/lines.txt"}}}}}},
+        "no_of_thetas": 3}}
+out = stardis_tpu_torch.run_stardis(cfg, u.Quantity(np.arange(6500.0, 6502.0, 0.05), u.AA),
+                                    device="cpu", dtype=torch.float64)
+assert np.isfinite(np.asarray(out.spectrum_nu)).all()
+assert stardis_tpu_torch.native.LAST_PARSER == "native"
+bad = [m for m in sys.modules if m.split('.')[0] in
+       ('jax', 'stardis_tpu', 'pandas', 'yaml', 'jsonschema', 'triton', 'h5py')]
+print(bad); sys.exit(1 if bad else 0)
+"""
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True)
     assert res.returncode == 0, res.stdout + res.stderr
