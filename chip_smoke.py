@@ -156,14 +156,29 @@ Phases (any failure exits non-zero and prints no result):
      Sim100AA's grid: F_nu finite and positive and equal bit for bit to the
      same run with the lines handed over in memory, both kernels launched,
      warm wall and device-busy share; the shortlist sets its flag and runs;
-     at 10k lines the kernel path against the all-plain path (rtol 1e-4).
+     at 10k lines the kernel path against the all-plain path (rtol 1e-4);
+ 16. the sharded paths (parallel.sharding) on a mesh of one card repeated
+     four times, float32, each held bit for bit: Sim100AA through
+     run_stardis(mesh=) against the unsharded run (warm walls of both), and
+     its F_nu [D, N] against the unsharded run and nu_segments=4, with each
+     shard's device time; the flagship through run_stardis(mesh=) against
+     phase 10's K = 4 spectrum, shard_spectrum's F_nu [D, N] against
+     segmented_spectrum's (warm wall, shard device times), shard_eval_stats
+     at 4 and 8 shards, each shard's Kernel 1 and 2 bounds, and a forecast
+     (labelled so) of a four-card wall; the 16-model batch through
+     run_batch on a 1-D batch mesh of 4 and a 2 x 2 mesh against phase 8's
+     unsharded batch; SpectralService(mesh=) against phase 11's requests;
+     a 2-chunk grid scan on a 2 x 2 mesh against phase 12's chunk files.
+     With two cards or more, a mesh over every card against one card, and
+     Kernels 1, 1b, 2 and 2b on cuda:1 while cuda:0 is current against
+     cuda:0; with one card a line says those checks were skipped.
 
 The kernels build in parallel (one nvcc per source).  The last line of
 standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 the line before it is the card's name and power limit, and the line
 before that holds each kernel's launches (summed over the main paths of
-phases 5, 7-12, 13, 14 and 15; the CLI runs in a process of its own and is
+phases 5, 7-12, 13, 14, 15 and 16; the CLI runs in a process of its own and is
 not counted), error, times and bound (the larger of the operations
 over the float32 peak and the bytes over the memory rate of an H100 SXM,
 from this run's inputs); every entry also holds yardstick_bound_ms, the
@@ -223,6 +238,8 @@ MEMORY_MOL_LINES = 2_000
 # the budgeted segmented run with return_radiation_field
 MEMORY_TRACKED_POINTS = 250_000
 RANGE_SEGMENTS = 3
+# phase 16: the shards of the mesh of repeated cards
+MESH_SHARDS = 4
 SERVE_TEFFS = (5777.0, 6300.0, 9000.0)
 SERVE_GIANT_TEFF = 4200.0
 KERNELS = ("line_opacity", "line_opacity_range", "formal_solution", "formal_solution_inward",
@@ -391,10 +408,11 @@ def bound(flops, nbytes):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def voigt_evaluations(nus, line_nu, centers, gamma, doppler, iw):
+def voigt_evaluations(nus, line_nu, centers, gamma, doppler, iw, pixels=None):
     """In-window Voigt evaluations of Kernel 1 by Humlicek region, for
     one model: nus [N] descending, line_nu / centers [L], gamma, doppler,
-    iw [L, D] (host, float64).  A pair (line, depth, pixel) is in window when
+    iw [L, D] (host, float64), over the pixel range ``pixels`` = (a, b)
+    (default the whole grid).  A pair (line, depth, pixel) is in window when
     -iw <= p - centre < iw; its region follows from |x| + y (I above 15,
     II above 5.5) and, below 5.5, from y >= 0.195 |x| - 0.176 (III, else
     IV), with x = (nu_p - nu_l) / doppler and y = gamma / (sqrt(pi) pi) /
@@ -403,9 +421,10 @@ def voigt_evaluations(nus, line_nu, centers, gamma, doppler, iw):
     import numpy as np
 
     n = len(nus)
+    p0, p1 = pixels or (0, n)
     asc = nus[::-1]
     c = centers[:, None]
-    lo, hi = np.clip(c - iw, 0, n), np.clip(c + iw, 0, n)  # window [lo, hi)
+    lo, hi = np.clip(c - iw, p0, p1), np.clip(c + iw, p0, p1)  # window [lo, hi) in the range
     y = gamma / (np.sqrt(np.pi) * np.pi) / doppler
     nu = line_nu[:, None]
 
@@ -1988,7 +2007,8 @@ def main():
             f"{trace_bound(*shape, tracked=True)[0]:.4f} ms, yardstick "
             f"{trace_bound(*shape, yardstick=True)[0]:.4f} ms; the unsegmented run_stardis "
             f"peaks at {peak_auto / 1e9:.4f} GB (K = {k_auto})")
-        del state, quants, fplan, fconsts, total, source, f_k
+        # phase 16 reuses fplan and spec_k
+        del state, quants, fconsts, total, source, f_k
     except Exception as exc:  # noqa: BLE001
         failures.append(f"flagship phase: {exc!r}")
 
@@ -2582,6 +2602,221 @@ def main():
         del mplan
     except Exception as exc:  # noqa: BLE001
         failures.append(f"MESA+VALD phase: {exc!r}")
+
+    # --- 16. the sharded paths on a mesh of one repeated card --------------------
+    try:
+        from stardis_tpu_torch.grid import synthesize_grid
+        from stardis_tpu_torch.parallel.batch import run_batch
+        from stardis_tpu_torch.parallel.sharding import (
+            Mesh,
+            make_batch_nu_mesh,
+            make_nu_mesh,
+            shard_eval_stats,
+            shard_spectrum,
+        )
+        from stardis_tpu_torch.serving import SpectralService
+
+        card0 = torch.device("cuda", 0)
+        mesh = make_nu_mesh(devices=[card0] * MESH_SHARDS)
+
+        def bits(label, ours, ref):
+            same = (torch.equal(ours, ref) if torch.is_tensor(ours)
+                    else bool(np.array_equal(ours, ref)))
+            log(f"{label}: equal bit for bit: {same}")
+            if not same:
+                failures.append(f"{label}: not equal bit for bit")
+
+        def stage1(mplan):
+            consts = device_constants(mplan, torch.float32, dev)
+            return (*stage_plasma_and_lines(
+                mplan, torch.as_tensor(mplan.temperatures, device=dev).to(torch.float32),
+                torch.as_tensor(mplan.n_elem, device=dev).to(torch.float32), consts), consts)
+
+        # Sim100AA: run_stardis on the mesh (warm wall beside the unsharded
+        # run's), F_nu [D, N] against the unsharded run and K segments
+        sim_cfg = sim100aa_config(model_path)
+        sim_adata = synth_linelist(build_builtin_atom_data(30, include_linelists=True), N_LINES)
+
+        def sim_run(**kw):
+            out = run_stardis(sim_cfg, lam_q, atom_data=sim_adata, **kw)
+            torch.cuda.synchronize()
+            return out
+
+        sim_run(mesh=mesh)  # warm-up
+        reset_counts()
+        t0 = time.perf_counter()
+        sim_mesh = sim_run(mesh=mesh)
+        wall_mesh = time.perf_counter() - t0
+        launches = path_launches["Sim100AA mesh"] = read_counts()
+        t0 = time.perf_counter()
+        sim_one = sim_run()
+        wall_one = time.perf_counter() - t0
+        if not (launches["line_opacity_range"] == MESH_SHARDS
+                and launches["formal_solution"] == MESH_SHARDS):
+            failures.append(f"Sim100AA mesh: launches {launches}")
+        bits(f"phase 16 Sim100AA run_stardis(mesh={MESH_SHARDS} x cuda:0) spectrum vs unsharded",
+             sim_mesh.spectrum_nu.value, sim_one.spectrum_nu.value)
+        f_mesh = run_simulation(plan, device=dev, mesh=mesh)[0]
+        bits("phase 16 Sim100AA F_nu [D, N] on the mesh vs unsharded", f_mesh,
+             run_simulation(plan, device=dev)[0])
+        bits(f"phase 16 Sim100AA F_nu [D, N] on the mesh vs nu_segments={MESH_SHARDS}", f_mesh,
+             run_simulation(plan, device=dev, nu_segments=MESH_SHARDS)[0])
+        s_state, s_quants, s_consts = stage1(plan)
+        walls = []
+        shard_spectrum(plan, s_state, s_quants, mesh, s_consts, shard_walls=walls)
+        log(f"phase 16 Sim100AA: run_stardis warm wall on the mesh {wall_mesh:.4f} s, unsharded "
+            f"{wall_one:.4f} s; launches {launches}; shard device times (CUDA events) "
+            + ", ".join(f"{w * 1e3:.3f}" for w in walls) + " ms")
+        del sim_mesh, sim_one, f_mesh
+
+        # the flagship on the mesh: against phase 10's K = 4 run
+        f_state, f_quants, f_consts = stage1(fplan)
+
+        def flagship_mesh_run():
+            out = run_stardis(f_cfg, f_lam, device="cuda", dtype=torch.float32,
+                              atom_data=f_adata, mesh=mesh)
+            torch.cuda.synchronize()
+            return out
+
+        reset_counts()
+        t0 = time.perf_counter()
+        flagship_mesh_run()
+        cold = time.perf_counter() - t0
+        launches = path_launches["flagship mesh"] = read_counts()
+        t0 = time.perf_counter()
+        spec_mesh = flagship_mesh_run().spectrum_nu.value
+        warm = time.perf_counter() - t0
+        bits(f"phase 16 flagship run_stardis(mesh={MESH_SHARDS} x cuda:0) spectrum vs phase 10's "
+             f"K = {FLAGSHIP_SEGMENTS}", spec_mesh, spec_k)
+        if not (launches["line_opacity_range"] == MESH_SHARDS
+                and launches["formal_solution"] == MESH_SHARDS):
+            failures.append(f"flagship mesh: launches {launches}")
+        walls = []
+        f_mesh = shard_spectrum(fplan, f_state, f_quants, mesh, f_consts, shard_walls=walls)
+        bits(f"phase 16 flagship F_nu [D, N] shard_spectrum vs segmented_spectrum "
+             f"K = {MESH_SHARDS}", f_mesh,
+             segmented_spectrum(fplan, f_state, f_quants, MESH_SHARDS, f_consts))
+        del f_mesh
+        log(f"phase 16 flagship on the mesh: run_stardis cold wall {cold:.3f} s, warm wall "
+            f"{warm:.3f} s; launches {launches}; shard device times (CUDA events) "
+            + ", ".join(f"{w:.4f}" for w in walls) + " s")
+        f_lines = prepare_lines(fplan, [f_state], [f_quants], f_consts)
+        stats = {n: shard_eval_stats(f_lines, FLAGSHIP_POINTS, n) for n in (MESH_SHARDS, 8)}
+        for n, st in stats.items():
+            log(f"phase 16 flagship shard_eval_stats, {n} shards: in-window evaluations per "
+                f"shard {st['per_shard_evals']}, unsharded {st['unsharded_evals']}, "
+                f"efficiency {st['efficiency']:.4f}")
+        del f_lines
+        alpha, gamma, doppler = f_quants["atomic"]
+        f_iw = lk.window_half_widths(alpha, gamma, doppler, fplan.d_nu, FLAGSHIP_POINTS)
+        host = [x.double().cpu().numpy() for x in (gamma, doppler)] + [f_iw.cpu().numpy()]
+        centres = lk.line_center_indices(fplan.tracing_nus, fplan.line_data.nu)
+        n_lines, n_depth, n_theta = fplan.line_data.n_lines, len(fplan.temperatures), len(fplan.weights)
+        for s_i, (a, b) in enumerate(segment_ranges(FLAGSHIP_POINTS, MESH_SHARDS)):
+            ev = voigt_evaluations(fplan.tracing_nus, fplan.line_data.nu, centres, *host,
+                                   pixels=(a, b))
+            k1_ms, k1_by = kernel1_bound(ev, 1, n_lines, n_depth, b - a, 4)
+            k2_ms, k2_by = trace_bound(1, n_depth, b - a, n_theta, 4, False)
+            log(f"phase 16 flagship shard {s_i} [{a}, {b}): Kernel 1 in-window evaluations by "
+                f"region {ev}, bound {k1_ms:.3f} ms ({k1_by}; counted from the source), Kernel 2 "
+                f"bound {k2_ms:.4f} ms ({k2_by}); device time {walls[s_i]:.4f} s")
+            if sum(ev.values()) != stats[MESH_SHARDS]["per_shard_evals"][s_i]:
+                failures.append(f"flagship shard {s_i}: region counts {sum(ev.values())} vs "
+                                f"shard_eval_stats {stats[MESH_SHARDS]['per_shard_evals'][s_i]}")
+        del alpha, gamma, doppler, f_iw, host, f_state, f_quants, f_consts
+        log(f"phase 16 flagship FORECAST, not a measurement: a {MESH_SHARDS}-card wall of "
+            f"{warm - sum(walls) + max(walls):.3f} s (this warm wall {warm:.3f} s less the "
+            f"{MESH_SHARDS} shards' serial device time {sum(walls):.3f} s plus the slowest "
+            f"shard's {max(walls):.3f} s; no peer copy or gather cost counted)")
+
+        # the 16-model batch on a 1-D batch mesh and on a 2 x 2 mesh
+        for label, bmesh in (("1-D batch mesh of 4", Mesh([card0] * 4, ("batch",))),
+                             ("2 x 2 batch x nu mesh", make_batch_nu_mesh(2, 2, [card0] * 4))):
+            run_batch(bplan, batch, mesh=bmesh, dtype=torch.float32)  # warm-up
+            reset_counts()
+            t0 = time.perf_counter()
+            f_m = run_batch(bplan, batch, mesh=bmesh, dtype=torch.float32)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = path_launches[f"batch, {label}"] = read_counts()
+            log(f"phase 16 batch on the {label}: warm wall {wall:.4f} s "
+                f"({BATCH_MODELS / wall:.1f} atmospheres/s); launches {launches}")
+            bits(f"phase 16 16-model batch on the {label} vs unsharded", f_m, f_batch)
+        del f_m
+
+        # SpectralService on the mesh against phase 11's unsharded service
+        msvc = SpectralService(s_cfg, lam_q, atom_data=s_adata, mesh=mesh)
+        reset_counts()
+        served_m = [msvc.synthesize(m) for m in s_models]
+        launches = path_launches["serving mesh"] = read_counts()
+        log(f"phase 16 serving on the mesh: launches {launches}")
+        for teff, ours, ref in zip(SERVE_TEFFS, served_m, served):
+            bits(f"phase 16 served {teff:.0f} K request on the mesh vs unsharded service",
+                 ours["F_nu"], ref["F_nu"])
+        del msvc, served_m
+
+        # a 2-chunk grid scan on a 2 x 2 mesh against phase 12's
+        mscan = os.path.join(tmp.name, "scan_mesh")
+        reset_counts()
+        r_m = synthesize_grid(config_b, b_adata, models, b_nus, mscan, batch_size=8,
+                              mesh=make_batch_nu_mesh(2, 2, [card0] * 4))
+        path_launches["grid scan mesh"] = read_counts()
+        if not (r_m["computed"] == 2 and r_m["done"]):
+            failures.append(f"grid scan on the mesh: {r_m}")
+        for ci in range(2):
+            name = f"chunk_{ci:05d}.npz"
+            with np.load(os.path.join(mscan, name)) as ours, \
+                    np.load(os.path.join(fresh, name)) as ref:
+                if not np.array_equal(ours["idx"], ref["idx"]):
+                    failures.append(f"grid scan on the mesh: {name} holds other models")
+                bits(f"phase 16 grid scan on a 2 x 2 mesh, {name} vs phase 12's",
+                     ours["spectrum"], ref["spectrum"])
+
+        # several cards: a mesh over all of them, and each kernel launched on
+        # cuda:1 while cuda:0 is current
+        n_cards = torch.cuda.device_count()
+        if n_cards >= 2:
+            bits(f"phase 16 Sim100AA F_nu on a mesh over {n_cards} cards vs one card "
+                 f"(nu_segments={n_cards})", run_simulation(plan, device=dev, mesh=make_nu_mesh())[0],
+                 run_simulation(plan, device=dev, nu_segments=n_cards)[0])
+            torch.cuda.set_device(0)
+            _, total, _, _ = stage_spectrum(plan, s_state, s_quants, s_consts)
+            source = blackbody_flux_at_nu(s_consts.tracing_nus, s_state.t)
+            args, iw = line_inputs(torch.float32)
+            gen = torch.Generator(dev).manual_seed(16)
+            g = torch.randn((1, *total.shape), device=dev, generator=gen)
+            trace_in = (total[None], source[None],
+                        torch.as_tensor(plan.ray_distances, device=dev).to(torch.float32)[None],
+                        torch.as_tensor(plan.weights, device=dev).to(torch.float32))
+
+            def kernels(device):
+                prep = lk.prepare_line_opacity(*(x.to(device) for x in args), iw.to(device))
+                tr = [x.to(device).contiguous() for x in trace_in]
+                corr = torch.ones(1, device=device)
+                return [lk.line_opacity_range(prep),
+                        *lk.accumulate_line_opacity_grad_cuda(prep, g.to(device), 0, g.shape[-1]),
+                        *solver.raytrace(*tr, track_individual_intensities=True),
+                        *solver.raytrace_grad_cuda(*tr, corr, g.to(device), None, False)]
+
+            ref = kernels(card0)
+            other = kernels(torch.device("cuda", 1))
+            torch.cuda.synchronize(0)
+            torch.cuda.synchronize(1)
+            names = ("Kernel 1", "Kernel 1b d/dalpha", "d/dgamma", "d/ddoppler", "Kernel 2 F_nu",
+                     "I_nu", "Kernel 2b d/dalpha", "d/dsource")
+            same = {n: torch.equal(a, b.to(card0)) for n, a, b in zip(names, ref, other)}
+            log(f"phase 16 kernels on cuda:1 with cuda:0 current (device {torch.cuda.current_device()}) "
+                f"vs cuda:0: {same}")
+            if not (all(same.values()) and torch.cuda.current_device() == 0):
+                failures.append(f"kernels on cuda:1: {same}")
+            del ref, other, total, source, trace_in
+        else:
+            log("phase 16: the multi-card checks were skipped for want of a second card "
+                f"(torch.cuda.device_count() = {n_cards}): peer copies, launches on a second "
+                "device and NCCL stay unverified on this machine")
+        del s_state, s_quants, s_consts
+    except Exception as exc:  # noqa: BLE001
+        failures.append(f"mesh phase: {exc!r}")
     tmp.cleanup()
 
     if failures:

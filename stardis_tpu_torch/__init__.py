@@ -6,9 +6,11 @@ Entry points, all on the card in float32 unless the caller passes
 ``run_stardis`` (one model, plane-parallel or spherical, with molecules,
 file opacities, either window mode, and ``nu_segments=K | "auto"`` for
 grids beyond the card's memory), ``parallel.batch.run_batch`` (a grid of
-models on one device), ``serving.SpectralService`` (repeated requests
-against one plan), ``grid.synthesize_grid`` (checkpointed library scans)
-and ``python -m stardis_tpu_torch`` (the command line), and
+models), ``serving.SpectralService`` (repeated requests against one plan),
+``grid.synthesize_grid`` (checkpointed library scans) and ``python -m
+stardis_tpu_torch`` (the command line), each of the first four also with
+``mesh=`` (``parallel.sharding.Mesh``: wavelengths and models sharded over
+devices, across processes with ``parallel.distributed``), and
 ``postprocessing`` (rotational and instrumental broadening: scipy host
 functions and differentiable torch ones).  The gradient path has no entry
 point of its own: as with the JAX package, a caller passes temperatures

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -40,6 +41,10 @@ KERNEL_FLAGS = {"formal_solution": ("-fmad=false",),
 KERNELS = ("line_opacity", "formal_solution", "line_opacity_grad", "formal_solution_grad")
 
 _LIBS: dict = {}
+#: one build of each kernel in a process: the host threads of a mesh over
+#: several cards reach a kernel's first launch together (different kernels
+#: build in parallel)
+_LOAD_LOCKS: dict = {}
 #: compiler report (ptxas registers / spills) of each kernel built by this
 #: process, by kernel name
 BUILD_LOGS: dict = {}
@@ -59,6 +64,13 @@ def load(name: str) -> ctypes.CDLL:
     """The library built from ``csrc/<name>.cu``, compiling it if needed."""
     if name in _LIBS:
         return _LIBS[name]
+    with _LOAD_LOCKS.setdefault(name, threading.Lock()):
+        if name not in _LIBS:
+            _LIBS[name] = _build_and_load(name)
+    return _LIBS[name]
+
+
+def _build_and_load(name: str) -> ctypes.CDLL:
     src = CSRC / f"{name}.cu"
     flags = (*NVCC_FLAGS, *KERNEL_FLAGS.get(name, ()))
     digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
@@ -77,7 +89,6 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
     getattr(lib, f"{name}_error_string").argtypes = [ctypes.c_int]
-    _LIBS[name] = lib
     return lib
 
 
@@ -108,3 +119,26 @@ def stream_ptr(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count(wrapper, counter: str) -> None:
+    """Add one to a wrapper's launch counter (``wrapper.<counter>``); the
+    host threads of a mesh over several cards launch at the same time."""
+    with _COUNT_LOCK:
+        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+
+
+def launch(fn, device, *args) -> int:
+    """Call the C entry point ``fn`` with ``args`` and the current stream of
+    ``device`` (its last argument), with ``device`` the calling thread's
+    current CUDA device for the call: an entry point launches, opts in to
+    more than 48 KB of shared memory (``cudaFuncSetAttribute``) and reads
+    ``cudaGetLastError`` on the current device, which must be its tensors'
+    own whatever device the caller has made current."""
+    import torch
+
+    with torch.cuda.device(device):
+        return fn(*args, stream_ptr(device))

@@ -1,5 +1,5 @@
 """Top-level API: run_stardis / STARDISOutput (PyTorch port of
-``stardis_tpu/base.py``, single device)."""
+``stardis_tpu/base.py``)."""
 
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from .io.abundances import rescale_nuclide_mass_fractions
 from .io.config import load_config
 from .io.marcs import read_marcs_model
 from .io.mesa import read_mesa_model
+from .parallel.sharding import Mesh
 from .pipeline import (
     build_simulation_plan,
     host_array,
@@ -204,7 +205,8 @@ class STARDISOutput:
 
 def check_segments(nu_segments, mesh=None):
     """The JAX package's checks on ``nu_segments`` (an integer or "auto")
-    and ``mesh``, made before any work; ``mesh`` itself is not ported."""
+    and ``mesh`` (a 1-D 'nu' ``parallel.sharding.Mesh``), made before any
+    work."""
     if isinstance(nu_segments, str) and nu_segments != "auto":
         raise ValueError(f"nu_segments must be an integer or 'auto', got {nu_segments!r}")
     if mesh is not None and nu_segments not in (1, "auto"):
@@ -212,8 +214,8 @@ def check_segments(nu_segments, mesh=None):
             "nu_segments and mesh are mutually exclusive: a wavelength "
             "mesh already splits the per-device footprint"
         )
-    if mesh is not None:
-        raise not_ported("mesh=", "multi-GPU sharding")
+    if mesh is not None and not (isinstance(mesh, Mesh) and mesh.axis_names == ("nu",)):
+        raise ValueError(f"mesh must be a 1-D 'nu' parallel.sharding.Mesh, got {mesh!r}")
 
 
 def resolve_segments(nu_segments, plan, dtype, device):
@@ -233,7 +235,7 @@ def resolve_segments(nu_segments, plan, dtype, device):
 def run_stardis(config, tracing_lambdas_or_nus, add_config_dict=None,
                 device="cuda", dtype=torch.float32, atom_data=None,
                 nu_segments=1, mesh=None):
-    """Run a STARDIS simulation on one device.
+    """Run a STARDIS simulation on one device, or sharded over a mesh.
 
     Parameters
     ----------
@@ -253,7 +255,14 @@ def run_stardis(config, tracing_lambdas_or_nus, add_config_dict=None,
         ``result_options.return_radiation_field`` the per-source opacity
         grids and their total are assembled on the host per segment, as
         NumPy arrays; without it they are left empty.
-    mesh : not ported (ROADMAP Queue 1: multi-GPU sharding).
+    mesh : a 1-D 'nu' ``parallel.sharding.Mesh`` (``make_nu_mesh``): stage 1
+        on ``device``, the spectrum sharded over the mesh's devices
+        (``parallel.sharding.shard_spectrum``; sharded == unsharded, bit for
+        bit on a mesh of one repeated card).  Mutually exclusive with
+        ``nu_segments`` > 1 ("auto" becomes 1); F_nu only: with
+        ``result_options.return_radiation_field`` it raises (drive
+        ``shard_spectrum`` for F_nu and I_nus), and the opacities are
+        left empty.
     """
     check_segments(nu_segments, mesh)
     device = resolve_device(device, "run_stardis")
@@ -270,10 +279,18 @@ def run_stardis(config, tracing_lambdas_or_nus, add_config_dict=None,
     config, adata, stellar_model = parse_config_to_model(
         config, add_config_dict, atom_data=atom_data
     )
+    if mesh is not None and config.result_options.return_radiation_field:
+        raise ValueError(
+            "result_options.return_radiation_field is not supported with mesh= (the "
+            "sharded path does not assemble the per-source opacity grids): run on one "
+            "device or with nu_segments, or drive parallel.sharding.shard_spectrum for "
+            "sharded F_nu and I_nus"
+        )
     plan = build_simulation_plan(config, adata, stellar_model, tracing_nus_hz)
     f_nu, total, opacities_dict, i_nus, state = run_simulation(
-        plan, device=device, dtype=dtype,
-        nu_segments=resolve_segments(nu_segments, plan, dtype, device),
+        plan, device=device, dtype=dtype, mesh=mesh,
+        nu_segments=1 if mesh is not None else resolve_segments(nu_segments, plan, dtype,
+                                                                device),
     )
 
     thetas, weights = gauss_legendre_thetas(int(config.no_of_thetas))

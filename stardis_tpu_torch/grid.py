@@ -16,8 +16,10 @@ computation.
 
 The JAX scan pads its last chunk to ``batch_size`` models so that every
 chunk runs one compiled program; the port compiles nothing per shape and
-runs the last chunk as it is.  ``mesh=`` and the multi-host gather are not
-ported (ROADMAP.md Queue 1: multi-GPU sharding).
+runs the last chunk as it is.  With ``mesh=`` each chunk goes through
+``run_batch(mesh=)``; over several processes (``parallel.distributed``) the
+chunk is gathered on every process, process 0 decides which chunks to skip
+and is the only one that writes.
 
 ``GridInterpolator`` interpolates a finished library multilinearly in
 torch, on the card unless the caller asks for the CPU, so autograd gives
@@ -39,7 +41,8 @@ import numpy as np
 import torch
 
 from .parallel.batch import collect_batch_inputs, make_batch, run_batch
-from .pipeline import not_ported, resolve_device
+from .parallel.sharding import Mesh, process_count, process_rank
+from .pipeline import resolve_device
 
 _MANIFEST = "manifest.json"
 #: what np.load raises on a truncated or corrupted chunk file
@@ -107,21 +110,24 @@ def synthesize_grid(config, atom_data, stellar_models, tracing_nus_hz, out_dir,
     out_dir : checkpoint directory, created if missing; each chunk is
         ``chunk_XXXXX.npz`` with ``idx`` (model indices) and ``spectrum``
         ([b, N] emergent F_nu, or [b, D, N] with ``store_depths``)
-    batch_size : models per chunk; default ``min(8, len(models))``
+    batch_size : models per chunk; default the mesh's 'batch' axis, else
+        ``min(8, len(models))``; with a 'batch' axis a multiple of it
     device, dtype : the card in float32 unless the caller asks otherwise
     labels : optional JSON-serialisable per-model labels, kept in the
         manifest and returned by ``load_grid``
     max_chunks : stop after this many newly computed chunks (the scan stays
         resumable)
     resume : reuse valid chunk files; False recomputes and overwrites them
-    mesh : not ported
+    mesh : a ``parallel.sharding.Mesh`` passed to ``run_batch``
 
     Returns a dict with ``computed`` / ``skipped`` / ``total`` chunk
     counts, ``out_dir`` and ``done`` (every chunk finished).
     """
-    if mesh is not None:
-        raise not_ported("synthesize_grid(mesh=)", "multi-GPU sharding")
     device = resolve_device(device, "synthesize_grid")
+    lead = process_rank() == 0
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.sharding.Mesh, not {type(mesh).__name__}")
+    n_mesh_batch = mesh.shape.get("batch") if mesh is not None else None
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     n_models = len(stellar_models)
@@ -130,9 +136,12 @@ def synthesize_grid(config, atom_data, stellar_models, tracing_nus_hz, out_dir,
     if labels is not None and len(labels) != n_models:
         raise ValueError("labels must match stellar_models")
     if batch_size is None:
-        batch_size = min(8, n_models)
+        batch_size = n_mesh_batch or min(8, n_models)
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+    if n_mesh_batch and batch_size % n_mesh_batch:
+        raise ValueError(f"batch_size {batch_size} must be a multiple of the mesh batch "
+                         f"axis ({n_mesh_batch})")
 
     nus = np.sort(np.asarray(tracing_nus_hz, dtype=np.float64))[::-1].copy()
     n_chunks = -(-n_models // batch_size)
@@ -146,7 +155,7 @@ def synthesize_grid(config, atom_data, stellar_models, tracing_nus_hz, out_dir,
                 "model count / chunking / labels / config / models mismatch); use a "
                 "fresh out_dir or delete the old scan"
             )
-    else:
+    elif lead:
         manifest = {
             "identity": identity,
             "n_models": n_models,
@@ -161,19 +170,24 @@ def synthesize_grid(config, atom_data, stellar_models, tracing_nus_hz, out_dir,
         tmp.write_text(json.dumps(manifest, indent=1, default=float))
         os.replace(tmp, manifest_path)
     nus_path = out_dir / "tracing_nus.npz"
-    if not nus_path.exists():
+    if lead and not nus_path.exists():
         _atomic_savez(nus_path, tracing_nus=nus)
 
     def members_of(ci):
         return np.arange(ci * batch_size, min((ci + 1) * batch_size, n_models))
 
+    # which chunks are finished: process 0's reading, so that every process
+    # computes (and gathers) the same chunks
+    ok = [resume and _chunk_ok(out_dir / _chunk_name(ci), members_of(ci)) if lead else None
+          for ci in range(n_chunks)]
+    if process_count() > 1:
+        torch.distributed.broadcast_object_list(ok, src=0)
     plan = None
     computed = skipped = 0
     finished = set()
     for ci in range(n_chunks):
         idx = members_of(ci)
-        path = out_dir / _chunk_name(ci)
-        if resume and _chunk_ok(path, idx):
+        if ok[ci]:
             skipped += 1
             finished.add(ci)
             continue
@@ -184,8 +198,11 @@ def synthesize_grid(config, atom_data, stellar_models, tracing_nus_hz, out_dir,
             plan, batch = make_batch(config, atom_data, members, nus)
         else:
             batch = collect_batch_inputs(config, members, plan)
-        f_nu = run_batch(plan, batch, device=device, dtype=dtype).cpu().numpy()  # [b, D, N]
-        _atomic_savez(path, idx=idx, spectrum=f_nu if store_depths else f_nu[:, -1, :])
+        f_nu = run_batch(plan, batch, mesh=mesh, device=device,
+                         dtype=dtype).cpu().numpy()  # [b, D, N]
+        if lead:
+            _atomic_savez(out_dir / _chunk_name(ci), idx=idx,
+                          spectrum=f_nu if store_depths else f_nu[:, -1, :])
         computed += 1
         finished.add(ci)
     done = all(ci in finished or _chunk_ok(out_dir / _chunk_name(ci), members_of(ci))

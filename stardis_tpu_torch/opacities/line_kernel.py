@@ -408,15 +408,15 @@ def accumulate_line_opacity_cuda(prepared, p_begin, n_out):
     suffix = "f32" if dtype == torch.float32 else "f64"
     fn = _cuda.bind("line_opacity", f"line_opacity_{suffix}", _LINE_ARGS)
     p = _cuda.ptr
-    status = fn(
+    status = _cuda.launch(
+        fn, q.grid.device,
         p(q.grid), p(q.line_nu), p(q.centers), p(q.alpha), p(q.gamma), p(q.doppler),
         p(q.iw), p(q.iw_max), q.step_min, p(out), n_models, n_lines, n_depth, p_begin, n_out,
-        _cuda.stream_ptr(q.grid.device),
     )
     if n_out == q.grid.shape[0]:
-        accumulate_line_opacity_cuda.launches += 1
+        _cuda.count(accumulate_line_opacity_cuda, "launches")
     else:
-        accumulate_line_opacity_cuda.range_launches += 1
+        _cuda.count(accumulate_line_opacity_cuda, "range_launches")
     _cuda.check("line_opacity", status)
     return out
 
@@ -532,14 +532,14 @@ def accumulate_line_opacity_grad_cuda(prepared, grad, p_begin, n_out):
     suffix = "f32" if dtype == torch.float32 else "f64"
     fn = _cuda.bind("line_opacity_grad", f"line_opacity_grad_{suffix}", _LINE_GRAD_ARGS)
     p = _cuda.ptr
-    status = fn(
+    status = _cuda.launch(
+        fn, q.grid.device,
         p(q.grid), p(q.line_nu), p(q.centers), p(q.alpha), p(q.gamma), p(q.doppler),
         p(q.iw), p(grad), *(p(o) for o in outs), p(sched.tile_lo), p(sched.tile_hi),
         p(sched.tile_start), p(sched.unit_tile), p(scratch), n_models, n_lines, n_depth,
         p_begin, n_out, n_nu, sched.n_units, sched.split_pixels, LINE_GRAD_TILE, chunk,
-        _cuda.stream_ptr(q.grid.device),
     )
-    accumulate_line_opacity_grad_cuda.launches += 1
+    _cuda.count(accumulate_line_opacity_grad_cuda, "launches")
     _cuda.check("line_opacity_grad", status)
     return outs
 

@@ -9,7 +9,9 @@ and the file-opacity cross-sections vary per model.
 Stage 1 (plasma and line quantities) and the continuum run model by model;
 each kernel runs the whole batch in one launch (Kernel 1 once per line
 set, Kernel 2 once), through the same ``pipeline.spectrum_batch`` that a
-single ``run_stardis`` uses with a batch of one.
+single ``run_stardis`` uses with a batch of one.  On a mesh
+(``parallel.sharding``) each batch row runs a contiguous chunk of the
+models, stage 1 and the spectrum on the devices of its entries.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from ..pipeline import (
     validate_line_quants,
 )
 from ..radiation_field.solver import gauss_legendre_thetas
+from .sharding import Mesh, as_batch_nu, shard_tiles, visible_devices
 
 
 @dataclasses.dataclass
@@ -125,39 +128,39 @@ def run_batch(plan: SimulationPlan, batch: BatchInputs, mesh=None, device="cuda"
     when they are tensors that require grad (Kernels 1b and 2b take the
     whole batch in one launch each); the file-table cross-sections are host
     arrays and, as in the JAX package, carry none.
-    mesh : not ported (multi-GPU, ROADMAP Queue 1).
+    mesh : a ``parallel.sharding.Mesh``.  A 1-D 'batch' mesh cuts the
+        models into contiguous chunks of ceil(B / n) (the JAX package needs
+        B divisible by n), one per entry, with stage 1 and the spectrum on
+        that entry's device; a ('batch', 'nu') mesh also splits each chunk's
+        wavelength grid over its row (``shard_batch_spectrum``), stage 1
+        running on each device of the row.  F_nu only, on the first device
+        of the mesh this process holds; ``device`` is then not used.
 
     A plan with molecules raises: the JAX package's run_batch evaluates
     every member's molecular densities with the template model's K(T) and
     U(T) tables (ROADMAP Queue 3), and the port neither copies that nor
     departs from it silently.
     """
-    if mesh is not None:
-        raise not_ported("run_batch(mesh=)", "multi-GPU sharding")
     if plan.molecule_tables is not None:
         raise not_ported(
             "run_batch with molecules (per-model molecular tables)",
             "the JAX batch evaluates molecules at the template's temperatures",
             queue=3,
         )
-    device = resolve_device(device, "run_batch")
-    consts = device_constants(plan, dtype, device)
-    states, quants = [], []
-    with _stage(timings, "plasma_and_lines", device):
-        temps = torch.as_tensor(batch.temperatures, device=device).to(dtype)
-        n_elem = torch.as_tensor(batch.n_elem, device=device).to(dtype)
-        for b in range(temps.shape[0]):
-            state, lq = stage_plasma_and_lines(plan, temps[b], n_elem[b], consts)
-            states.append(state)
-            quants.append(lq)
-    with _stage(timings, "validate", device):
-        validate_line_quants({
-            f"{key} (model {b})": triple
-            for b, lq in enumerate(quants) if lq for key, triple in lq.items()
-        })
     correction = batch.photospheric_correction
     if correction is None and plan.inward_rays:
         raise ValueError("a spherical batch needs its per-model corrections")
+    if mesh is not None:
+        f_nu, _ = shard_tiles(
+            plan, as_batch_nu(mesh), len(batch.temperatures),
+            lambda m0, m1, consts, stage_t: _stage1(plan, batch, m0, m1, consts, dtype,
+                                                    stage_t),
+            dtype, ray_distances=batch.ray_distances, photospheric_correction=correction,
+            file_sigmas=batch.file_sigmas, plain=plain, timings=timings)
+        return f_nu
+    device = resolve_device(device, "run_batch")
+    consts = device_constants(plan, dtype, device)
+    states, quants = _stage1(plan, batch, 0, len(batch.temperatures), consts, dtype, timings)
     with _stage(timings, "line_opacity", device):
         lines = prepare_lines(plan, states, quants, consts, batch.file_sigmas, plain)
     f_nu, *_ = spectrum_batch(
@@ -169,3 +172,32 @@ def run_batch(plan: SimulationPlan, batch: BatchInputs, mesh=None, device="cuda"
         timings=timings,
     )
     return f_nu
+
+
+def make_batch_mesh(n_devices=None, devices=None):
+    """1-D ``'batch'`` mesh: ``devices`` (which may repeat one device), or
+    the first ``n_devices`` visible cards (default all of them)."""
+    if devices is None:
+        devices = visible_devices()[: n_devices or None]
+    return Mesh(list(devices), ("batch",))
+
+
+def _stage1(plan, batch, m0, m1, consts, dtype, timings=None):
+    """Stage 1 of the batch's models [m0, m1) on the device of ``consts``,
+    model by model, and one finiteness check of their line quantities:
+    (states, quants)."""
+    device = consts.tracing_nus.device
+    states, quants = [], []
+    with _stage(timings, "plasma_and_lines", device):
+        temps = torch.as_tensor(batch.temperatures[m0:m1], device=device).to(dtype)
+        n_elem = torch.as_tensor(batch.n_elem[m0:m1], device=device).to(dtype)
+        for b in range(m1 - m0):
+            state, lq = stage_plasma_and_lines(plan, temps[b], n_elem[b], consts)
+            states.append(state)
+            quants.append(lq)
+    with _stage(timings, "validate", device):
+        validate_line_quants({
+            f"{key} (model {m0 + b})": triple
+            for b, lq in enumerate(quants) if lq for key, triple in lq.items()
+        })
+    return states, quants

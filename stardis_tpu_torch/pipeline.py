@@ -675,7 +675,7 @@ def stage_spectrum(plan: SimulationPlan, state, line_quants, consts, plain=False
 
 
 def run_simulation(plan: SimulationPlan, device="cuda", dtype=torch.float32,
-                   plain=False, timings=None, nu_segments=1):
+                   plain=False, timings=None, nu_segments=1, mesh=None):
     """Both device stages; returns (F_nu, totals, opacities, I_nus, state).
 
     device, dtype : the card in float32 unless asked otherwise; a CUDA
@@ -684,6 +684,10 @@ def run_simulation(plan: SimulationPlan, device="cuda", dtype=torch.float32,
         another (``parallel.sharding.segmented_spectrum``): totals and
         opacities are then host NumPy arrays when the plan tracks I_nu
         (``result_options.return_radiation_field``), else None and {}
+    mesh : a 'nu' ``parallel.sharding.Mesh``: stage 1 runs on ``device``,
+        the spectrum sharded over the mesh
+        (``parallel.sharding.shard_spectrum``); totals and opacities are
+        None and {}
     timings : optional dict that receives the wall time of each stage
         (the device is synchronised around each)."""
     device = resolve_device(device, "run_simulation")
@@ -694,6 +698,13 @@ def run_simulation(plan: SimulationPlan, device="cuda", dtype=torch.float32,
         state, line_quants = stage_plasma_and_lines(plan, temps, n_elem, consts)
     with _stage(timings, "validate", device):
         validate_line_quants(line_quants)
+    if mesh is not None:
+        from .parallel.sharding import shard_spectrum
+
+        out = shard_spectrum(plan, state, line_quants, mesh, consts, plain=plain,
+                             timings=timings)
+        f_nu, i_nus = out if plan.track_individual_intensities else (out, None)
+        return f_nu, None, {}, i_nus, state
     if int(nu_segments) > 1:
         from .parallel.sharding import segmented_spectrum
 

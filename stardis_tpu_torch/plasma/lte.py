@@ -15,6 +15,7 @@ All Saha algebra runs in log space, so the solve is float32-safe.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -104,6 +105,13 @@ def device_tables(tables: PlasmaTables, dtype=torch.float64,
         h_slots=h_slots,
         has_hydrogen=bool(has_h),
     )
+
+
+#: torch's forward-mode AD levels (``torch.func.jvp``) are one stack for the
+#: whole process: two host threads in a jvp at once (the per-card threads of
+#: a mesh) read each other's level and give wrong results or raise, so the
+#: Newton step's jvp runs in one thread at a time
+_JVP_LOCK = threading.Lock()
 
 
 class PlasmaState(NamedTuple):
@@ -215,7 +223,8 @@ def solve_lte(temperatures, elemental_number_density, dt: DevicePlasmaTables):
     def resid(x):
         return torch.log(total_charge(x)) - x
 
-    fx, dfx = torch.func.jvp(resid, (log_ne_star,), (torch.ones_like(log_ne_star),))
+    with _JVP_LOCK:
+        fx, dfx = torch.func.jvp(resid, (log_ne_star,), (torch.ones_like(log_ne_star),))
     log_ne = log_ne_star - fx / dfx
     n_e = torch.exp(log_ne)
 

@@ -422,16 +422,16 @@ def _launch_trace(alphas, source, ray_distances, weights, correction, inward_ray
     suffix = "f32" if dtype == torch.float32 else "f64"
     fn = _cuda.bind("formal_solution", f"formal_solution_{suffix}", _TRACE_ARGS)
     p = _cuda.ptr
-    status = fn(
+    status = _cuda.launch(
+        fn, alphas.device,
         p(alphas), p(source), p(ray_distances), p(weights), p(correction),
         ctypes.c_void_p(None) if intensity is None else p(intensity), p(f_nu),
         n_models, n_depth, n_nu, n_theta, tile, TRACE_CHUNK, int(bool(inward_rays)),
-        _cuda.stream_ptr(alphas.device),
     )
     if inward_rays:
-        raytrace_cuda.inward_launches += 1
+        _cuda.count(raytrace_cuda, "inward_launches")
     else:
-        raytrace_cuda.launches += 1
+        _cuda.count(raytrace_cuda, "launches")
     _cuda.check("formal_solution", status)
     return f_nu, intensity
 
@@ -514,16 +514,16 @@ def raytrace_grad_cuda(alphas, source, ray_distances, weights, correction, g_flu
     def p(t):
         return ctypes.c_void_p(None) if t is None else _cuda.ptr(t)
 
-    status = fn(
+    status = _cuda.launch(
+        fn, alphas.device,
         p(alphas), p(source), p(ray_distances), p(weights), p(correction), p(g_flux),
         p(g_intensity), p(g_alpha), p(g_source), n_models, n_depth, n_nu, n_theta, tile,
         TRACE_GRAD_CHUNK, span, int(inward),
-        _cuda.stream_ptr(alphas.device),
     )
     if inward_rays:
-        raytrace_grad_cuda.inward_launches += 1
+        _cuda.count(raytrace_grad_cuda, "inward_launches")
     else:
-        raytrace_grad_cuda.launches += 1
+        _cuda.count(raytrace_grad_cuda, "launches")
     _cuda.check("formal_solution_grad", status)
     return g_alpha, g_source
 

@@ -38,7 +38,9 @@ against them, re-tiering (``stats.retier_events``) when a request's windows
 outgrow them.  The port has no window tiers and compiles nothing per plan:
 Kernel 1 reads each request's exact windows, so ``tier_margin`` and
 ``chunk`` are not carried and ``retier_events`` stays 0.  ``compiles``
-counts the plans built.  ``mesh=`` is not ported (multi-GPU sharding).
+counts the plans built.  ``mesh=`` (a 1-D 'nu' ``parallel.sharding.Mesh``)
+serves each request through ``parallel.sharding.shard_spectrum``, with the
+request's own rays and sigma tables; stage 1 runs on ``device``.
 """
 
 from __future__ import annotations
@@ -85,7 +87,9 @@ class SpectralService:
     device, dtype : the card in float32 unless the caller asks otherwise;
         a CUDA device without a GPU raises.
     nu_segments : an integer K, or "auto" (the memory model, on the first
-        request's plan).
+        request's plan; 1 with a mesh).
+    mesh : a 1-D 'nu' ``parallel.sharding.Mesh``: each request's spectrum
+        is sharded over it; exclusive with nu_segments > 1.
     """
 
     def __init__(self, config, tracing_lambdas_or_nus, add_config_dict=None,
@@ -94,7 +98,8 @@ class SpectralService:
         check_segments(nu_segments, mesh)
         self._device = resolve_device(device, "SpectralService")
         self._dtype = dtype
-        self._nu_segments = nu_segments
+        self._nu_segments = 1 if mesh is not None else nu_segments
+        self._mesh = mesh
         self.stats = ServiceStats()
         self.config, self.atom_data, _model = parse_config_to_model(
             config, add_config_dict, atom_data=atom_data
@@ -182,7 +187,13 @@ class SpectralService:
                                  device=self._device).to(self._dtype)
         state, lq = stage_plasma_and_lines(plan, temps, n_elem, consts)
         validate_line_quants(lq)
-        if self._nu_segments > 1:
+        if self._mesh is not None:
+            from .parallel.sharding import shard_spectrum
+
+            out = shard_spectrum(plan, state, lq, self._mesh, consts, ray_distances=rays,
+                                 file_sigma_override=sigmas)
+            f_nu, i_nus = out if plan.track_individual_intensities else (out, None)
+        elif self._nu_segments > 1:
             from .parallel.sharding import segmented_spectrum
 
             out = segmented_spectrum(plan, state, lq, self._nu_segments, consts,

@@ -11,21 +11,29 @@ was after each, so a gradient's products round as the forward's do.
 
 from __future__ import annotations
 
+import threading
 from contextlib import contextmanager
 
 import torch
+
+#: the switch is one for the whole process: the host threads of a mesh over
+#: several cards take these blocks one at a time, so that no product runs
+#: after another thread has put the switch back, and the caller's setting
+#: is what comes back
+_SWITCH = threading.RLock()
 
 
 @contextmanager
 def full_float32():
     """Matrix products in full float32, not TF32, inside the block only:
     the previous setting comes back afterwards."""
-    previous = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = previous
+    with _SWITCH:
+        previous = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = previous
 
 
 class _Float32Matmul(torch.autograd.Function):

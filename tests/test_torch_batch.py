@@ -6,7 +6,8 @@
   batch carried over and from the port's own host phase;
 * each member against the port's single-model run of that model at 1e-12
   (the batch is the same code path with B > 1);
-* mixed geometry is rejected, mesh= is not ported;
+* mixed geometry is rejected, and so is a mesh that is not a
+  ``parallel.sharding.Mesh`` (meshes: ``tests/test_torch_sharding.py``);
 * molecules: the JAX run_batch evaluates every member's molecular
   densities with the template model's K(T) / U(T) tables.  The test shows
   that discrepancy (member 1 against the JAX single run of that model) and
@@ -162,8 +163,8 @@ def test_mixed_geometry_and_mesh_are_rejected(tmp_path):
     with pytest.raises(ValueError, match="geometry"):
         tbatch.make_batch(config, adata, models, nus)
     plan, batch = tbatch.make_batch(config, adata, models[:1], nus)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tbatch.run_batch(plan, batch, mesh=object())
+    with pytest.raises(TypeError, match="Mesh"):
+        tbatch.run_batch(plan, batch, mesh=object(), device="cpu", dtype=torch.float64)
 
 
 def test_molecule_batch_raises_and_jax_discrepancy(tmp_path):

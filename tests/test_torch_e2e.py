@@ -173,8 +173,8 @@ def test_out_of_slice_branches_raise(tmp_path, edit, ported_key):
 
 def test_spherical_and_partition_options_raise(tmp_path):
     """Spherical models run (the inward sweep is ported); nu_segments=2
-    runs and equals the unsegmented run; a bad segment count and mesh=
-    raise."""
+    runs and equals the unsegmented run; a bad segment count and a mesh=
+    that is not a 'nu' Mesh raise."""
     lam = tu.Quantity(np.arange(6560.0, 6561.0, 0.1), tu.AA)
     sph = str(tmp_path / "sph.mod")
     write_marcs_file(sph, spherical=True)
@@ -188,7 +188,7 @@ def test_spherical_and_partition_options_raise(tmp_path):
                                whole.stellar_radiation_field.F_nu.numpy(), rtol=1e-12, atol=0)
     with pytest.raises(ValueError, match="'auto'"):
         stardis_tpu_torch.run_stardis(cfg, lam, device="cpu", nu_segments="many")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(ValueError, match="'nu' parallel.sharding.Mesh"):
         stardis_tpu_torch.run_stardis(_base_config(tmp_path), lam, mesh=object(), device="cpu", dtype=torch.float64)
     with pytest.raises(TypeError):
         stardis_tpu_torch.run_stardis(_base_config(tmp_path), np.arange(3.0), device="cpu", dtype=torch.float64)

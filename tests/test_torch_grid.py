@@ -9,8 +9,8 @@ on the CPU.
 * GridInterpolator: values and gradients (autograd) against the JAX
   interpolator's (jax.grad) at 1e-12, in linear and in log flux, on an
   unordered 2-D tensor grid and from a scan;
-* mesh= and a CUDA device without a GPU raise (the scan and the
-  interpolator).
+* a mesh= that is not a ``parallel.sharding.Mesh`` and a CUDA device
+  without a GPU raise (the scan and the interpolator).
 """
 
 import numpy as np
@@ -120,7 +120,7 @@ def test_resume_equals_uninterrupted(grid_setup, tmp_path):
 
 def test_scan_options_raise(grid_setup, tmp_path):
     _, (tc, ta, tm), nus, _ = grid_setup
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="Mesh"):
         tgrid.synthesize_grid(tc, ta, tm, nus, tmp_path / "m", mesh=object(), **CPU)
     with pytest.raises(ValueError, match="batch_size"):
         tgrid.synthesize_grid(tc, ta, tm, nus, tmp_path / "b", batch_size=0, **CPU)

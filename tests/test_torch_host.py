@@ -198,9 +198,10 @@ def test_synthetic_marcs_file_is_identical(tmp_path):
 
 
 def test_port_imports_no_jax_pandas_yaml(tmp_path):
-    """The port's modules, the new inputs' among them, and a MESA model with
-    a VALD text line list run on the CPU import none of jax, stardis_tpu,
-    pandas, PyYAML, jsonschema, triton or h5py."""
+    """The port's modules, the new inputs' and the sharded paths' among
+    them, and a MESA model with a VALD text line list run on the CPU, alone
+    and on a ["cpu"] * 2 mesh, import none of jax, stardis_tpu, pandas,
+    PyYAML, jsonschema, triton or h5py."""
     code = f"""
 import sys
 import numpy as np
@@ -208,6 +209,8 @@ import torch
 import stardis_tpu_torch, stardis_tpu_torch.pipeline
 import stardis_tpu_torch.native, stardis_tpu_torch.io.mesa
 import stardis_tpu_torch.util.hdf, stardis_tpu_torch.util.regression
+import stardis_tpu_torch.parallel.distributed
+from stardis_tpu_torch.parallel.sharding import Mesh
 from stardis_tpu_torch import units as u
 from stardis_tpu_torch.atom_data import build_builtin_atom_data
 from stardis_tpu_torch.io.synthetic import write_mesa_file, write_vald_linelist
@@ -221,9 +224,13 @@ cfg = {{"stardis_config_version": 1.0, "atom_data": "builtin:30",
         "opacity": {{"bf": {{"H_I": {{}}}}, "line": {{"disable": False, "broadening": ["radiation"],
                      "vald_linelist": {{"use_linelist": True, "fname": tmp + "/lines.txt"}}}}}},
         "no_of_thetas": 3}}
-out = stardis_tpu_torch.run_stardis(cfg, u.Quantity(np.arange(6500.0, 6502.0, 0.05), u.AA),
-                                    device="cpu", dtype=torch.float64)
+lam = u.Quantity(np.arange(6500.0, 6502.0, 0.05), u.AA)
+out = stardis_tpu_torch.run_stardis(cfg, lam, device="cpu", dtype=torch.float64)
 assert np.isfinite(np.asarray(out.spectrum_nu)).all()
+sharded = stardis_tpu_torch.run_stardis(cfg, lam, device="cpu", dtype=torch.float64,
+                                        mesh=Mesh(["cpu"] * 2, ("nu",)))
+assert np.allclose(np.asarray(sharded.spectrum_nu), np.asarray(out.spectrum_nu),
+                   rtol=1e-12, atol=0)
 assert stardis_tpu_torch.native.LAST_PARSER == "native"
 bad = [m for m in sys.modules if m.split('.')[0] in
        ('jax', 'stardis_tpu', 'pandas', 'yaml', 'jsonschema', 'triton', 'h5py')]

@@ -102,3 +102,41 @@ def test_broadening_products_backward_run_in_full_float32(tf32_on, products, dty
         ref = torch.autograd.grad((a @ b).square().sum(), [a, b])
         assert all(torch.allclose(x, y, rtol=1e-6 if dtype == torch.float32 else 1e-14,
                                   atol=0) for x, y in zip(ours, ref))
+
+
+def test_switch_holds_across_racing_threads(monkeypatch, tf32_on):
+    """The host threads of a mesh over several cards run these products at
+    the same time: every product of every thread sees the switch off, and
+    the caller's setting is what comes back.  Each product sleeps a
+    millisecond, so that the threads' blocks would overlap."""
+    import threading
+    import time
+
+    seen = []
+    matmul = torch.Tensor.__matmul__
+
+    def slow(*args):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        time.sleep(1e-3)
+        return matmul(*args)
+
+    monkeypatch.setattr(torch.Tensor, "__matmul__", slow)
+    gen = torch.Generator().manual_seed(13)
+    a, b = torch.randn(20, 6, generator=gen), torch.randn(6, 30, generator=gen)
+    errors = []
+
+    def work():
+        try:
+            for _ in range(20):
+                full_float32_matmul(a, b)
+        except BaseException as exc:  # noqa: BLE001 - re-raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=work) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not errors and not any(t.is_alive() for t in threads)
+    assert len(seen) == 8 * 20 and not any(seen)
+    assert torch.backends.cuda.matmul.allow_tf32

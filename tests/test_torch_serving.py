@@ -12,8 +12,8 @@ request by request, float64 on the CPU, at 1e-9.
   photospheric correction), segmented;
 * synthesize_batch against the JAX service's;
 * the request guards raise the JAX errors; a plan with molecules refuses
-  other temperatures than its own; mesh=, bad segment counts and a CUDA
-  device without a GPU raise.
+  other temperatures than its own; a mesh= that is not a 'nu' Mesh, bad
+  segment counts and a CUDA device without a GPU raise.
 """
 
 import numpy as np
@@ -222,7 +222,7 @@ def test_guards_raise_as_jax(tmp_path, sun_setup):
         msvc.synthesize(read_stellar_model(msvc.config, msvc.atom_data, paths["warm"]))
     with pytest.raises(ValueError, match="mutually exclusive"):
         SpectralService(cfg, tlam, nu_segments=2, mesh=object(), **CPU)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(ValueError, match="'nu' parallel.sharding.Mesh"):
         SpectralService(cfg, tlam, mesh=object(), **CPU)
     with pytest.raises(ValueError, match="'auto'"):
         SpectralService(cfg, tlam, nu_segments="many", **CPU)
