@@ -171,15 +171,37 @@ Phases (any failure exits non-zero and prints no result):
      a 2-chunk grid scan on a 2 x 2 mesh against phase 12's chunk files.
      With two cards or more, a mesh over every card against one card, and
      Kernels 1, 1b, 2 and 2b on cuda:1 while cuda:0 is current against
-     cuda:0; with one card a line says those checks were skipped.
+     cuda:0; with one card a line says those checks were skipped;
+ 17. the rest of the host surface, float32 unless said: (a)
+     radiation_field.create_stellar_radiation_field on Sim100AA (100k
+     lines, 20 theta, I_nu tracked) for the caller's frequencies ascending
+     and in a seeded shuffle, F_nu, the total opacity and I_nu equal bit for
+     bit to run_stardis' (same configuration) under the same permutation,
+     warm walls; (b) one warm Sim100AA run_stardis inside
+     util.profiling.device_trace: the trace file holds Kernel 1's
+     (line_opacity) and Kernel 2's (trace_kernel, the formal solution)
+     kernels, their device ms from the trace beside the profiler's
+     (kernel_device_ms, as phases 3-4 read it), and the "plan" and "solve"
+     stages run_stardis logged, their sum within the warm wall; (c) the
+     kurucz-scale carsus store built in memory (build_carsus_frames at its
+     defaults: 150,000 lines, 120,000 VALD lines, Z <= 30, molecules;
+     convert_frames; host times of both) and run as util.regression's
+     carsus_scale configuration, float64 against tests/golden/carsus_scale.npz
+     at rtol 1e-6 and float32 within the float32 bars, then on Sim100AA's
+     grid and theta: F_nu finite and positive, warm wall, Kernel 1's
+     in-window evaluations and bound; (d) the compile cache: a child
+     process with STARDIS_COMPILE_CACHE loads formal_solution from there
+     (built by nvcc into that directory, not _build/), a second child
+     loads it without nvcc, and their launches on one fixed input are
+     equal bit for bit (cold build and cached load times).
 
 The kernels build in parallel (one nvcc per source).  The last line of
 standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 the line before it is the card's name and power limit, and the line
 before that holds each kernel's launches (summed over the main paths of
-phases 5, 7-12, 13, 14, 15 and 16; the CLI runs in a process of its own and is
-not counted), error, times and bound (the larger of the operations
+phases 5, 7-12, 13, 14, 15, 16 and 17; the CLI and phase 17's compile-cache
+children run in processes of their own and are not counted), error, times and bound (the larger of the operations
 over the float32 peak and the bytes over the memory rate of an H100 SXM,
 from this run's inputs); every entry also holds yardstick_bound_ms, the
 bound by its kernel's first design's operation count; Kernel 2's two and
@@ -205,6 +227,35 @@ N_LINES_KERNEL_CHECK = 5_000
 GOLDEN_STORES = ("solar_halpha", "solar_nad_plasma")
 # phase 15: the MESA sun's shells (write_mesa_file's default, tests/test_mesa.py's)
 MESA_SHELLS = 80
+# phase 17: the kurucz-scale carsus store's sizes (build_carsus_frames' defaults)
+CARSUS_LINES = 150_000
+CARSUS_VALD_LINES = 120_000
+# phase 17's compile-cache child: Kernel 2 on a seeded plane-parallel input of
+# this shape (depths, frequencies, angles), its F_nu written to argv[1]
+CACHE_CHILD = """
+import json, os, sys, time
+sys.path.insert(0, os.environ["STARDIS_REPO"])
+import numpy as np
+import torch
+from stardis_tpu_torch import _cuda
+from stardis_tpu_torch.radiation_field import solver
+from stardis_tpu_torch.util.compile_cache import enable_compilation_cache
+
+enable_compilation_cache()
+t0 = time.perf_counter()
+_cuda.load("formal_solution")
+load_s = time.perf_counter() - t0
+gen = torch.Generator("cuda").manual_seed(17)
+d, n, t = 56, 4096, 20
+alphas = torch.rand((d, n), device="cuda", generator=gen) * 1e-6 + 1e-9
+source = torch.rand((d, n), device="cuda", generator=gen) + 0.5
+rays = torch.rand((d - 1, t), device="cuda", generator=gen) * 1e6 + 1e5
+weights = torch.full((t,), 1.0 / t, device="cuda")
+f_nu = solver.raytrace(alphas, source, rays, weights)[0]
+np.save(sys.argv[1], f_nu.cpu().numpy())
+print(json.dumps({"build_dir": str(_cuda.BUILD_DIR), "loaded": _cuda._LIBS["formal_solution"]._name,
+                  "nvcc_ran": sorted(_cuda.BUILD_LOGS), "load_s": load_s}))
+"""
 GIANT = {"teff": 4000.0, "logg": 2.0, "spherical": True, "radius_cm": 2e12}
 GIANT_MOL_LINES = 20_000
 GIANT_MOL_LINES_PLAIN_CHECK = 2_000
@@ -2817,6 +2868,246 @@ def main():
         del s_state, s_quants, s_consts
     except Exception as exc:  # noqa: BLE001
         failures.append(f"mesh phase: {exc!r}")
+    # --- 17. the rest of the host surface ------------------------------------------
+    t_phase17 = time.perf_counter()
+    try:
+        import glob
+        import logging
+
+        from stardis_tpu_torch.atom_data.convert import convert_frames
+        from stardis_tpu_torch.atom_data.synthetic_carsus import build_carsus_frames
+        from stardis_tpu_torch.radiation_field import create_stellar_radiation_field
+        from stardis_tpu_torch.util.profiling import device_trace
+        from stardis_tpu_torch.util.regression import (
+            GOLDEN_RTOL,
+            RegressionData,
+            f32_kind,
+            f32_ratio,
+            golden_arrays,
+            golden_ratio,
+        )
+
+        def sim100aa_atom_data():
+            return synth_linelist(build_builtin_atom_data(30, include_linelists=True), N_LINES)
+
+        # (a) create_stellar_radiation_field against run_stardis, permuted
+        rf_cfg = sim100aa_config(model_path)
+        rf_cfg["result_options"] = {"return_radiation_field": True}
+        out = run_stardis(rf_cfg, lam_q, device="cuda", dtype=torch.float32,
+                          atom_data=sim100aa_atom_data())
+        field = out.stellar_radiation_field
+        grid = np.asarray(field.frequencies)
+        rf_config, rf_adata, rf_model = parse_config_to_model(rf_cfg,
+                                                              atom_data=sim100aa_atom_data())
+        callers = {"ascending": np.sort(nus),
+                   "shuffled": np.random.default_rng(17).permutation(np.sort(nus))}
+        create_stellar_radiation_field(callers["ascending"], rf_model, rf_adata, rf_config)
+        torch.cuda.synchronize()
+        reset_counts()
+        rf_walls, rf_same = {}, {}
+        for label, caller in callers.items():
+            t0 = time.perf_counter()
+            rf = create_stellar_radiation_field(caller, rf_model, rf_adata, rf_config)
+            torch.cuda.synchronize()
+            rf_walls[label] = time.perf_counter() - t0
+            perm = torch.as_tensor(np.searchsorted(-grid, -caller), device=dev)
+            rf_same[label] = {
+                "frequencies": bool(np.array_equal(grid[perm.cpu().numpy()], caller)),
+                "F_nu": torch.equal(rf.F_nu, field.F_nu[:, perm]),
+                "total": torch.equal(rf.opacities.total_alphas,
+                                     field.opacities.total_alphas[:, perm]),
+                "I_nu": torch.equal(rf.I_nus, field.I_nus[:, perm]),
+            }
+        launches = path_launches["radiation field"] = read_counts()
+        del rf, field, out
+        for label, same in rf_same.items():
+            log(f"phase 17 create_stellar_radiation_field (Sim100AA, {N_LINES} lines, I_nu "
+                f"tracked), caller's frequencies {label}: warm wall {rf_walls[label]:.4f} s; "
+                f"equal bit for bit to run_stardis permuted: {same}")
+            if not all(same.values()):
+                failures.append(f"create_stellar_radiation_field {label}: {same}")
+        log(f"phase 17 create_stellar_radiation_field launches (both calls): {launches}")
+        if launches["line_opacity"] < 1 or launches["formal_solution"] < 1:
+            failures.append(f"radiation field: a kernel was not launched: {launches}")
+
+        # (b) a warm Sim100AA run_stardis inside device_trace; the stages it logs
+        def sim100aa_run():
+            out = run_stardis(sim100aa_config(model_path), lam_q, device="cuda",
+                              dtype=torch.float32, atom_data=sim100aa_atom_data())
+            torch.cuda.synchronize()
+            return out
+
+        class Stages(logging.Handler):
+            def __init__(self):
+                super().__init__(logging.INFO)
+                self.messages = []
+
+            def emit(self, record):
+                self.messages.append(record.getMessage())
+
+        trace_dir = os.path.join(tmp.name, "trace")
+        sim100aa_run()
+        stage_log = Stages()
+        prof_logger = logging.getLogger("stardis_tpu_torch.util.profiling")
+        level = prof_logger.level
+        prof_logger.setLevel(logging.INFO)
+        prof_logger.addHandler(stage_log)
+        reset_counts()
+        try:
+            with device_trace(trace_dir):
+                t0 = time.perf_counter()
+                sim100aa_run()
+                wall = time.perf_counter() - t0
+        finally:
+            prof_logger.removeHandler(stage_log)
+            prof_logger.setLevel(level)
+        launches = path_launches["Sim100AA traced"] = read_counts()
+        traces = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+        with open(traces[0]) as fh:
+            events = json.load(fh)["traceEvents"]
+        kernel_events = [e for e in events if e.get("cat") == "kernel"]
+        trace_ms = {
+            "line_opacity": sum(e["dur"] for e in kernel_events if "line_opacity" in e["name"]
+                                and "grad" not in e["name"]) * 1e-3,
+            "formal_solution": sum(e["dur"] for e in kernel_events
+                                   if "trace_kernel" in e["name"]
+                                   and "grad" not in e["name"]) * 1e-3,
+        }
+        prof_ms = kernel_device_ms(torch, sim100aa_run, ("line_opacity_kernel", "trace_kernel"))
+        stages = {}
+        for msg in stage_log.messages:
+            for name, secs in (part.split(": ") for part in msg.split("stage timings: ", 1)[-1]
+                               .split(" | ") if part.endswith("s") and ": " in part):
+                if name in ("plan", "solve"):
+                    stages[name] = float(secs[:-1])
+        log(f"phase 17 device_trace: {len(traces)} trace file(s), {len(kernel_events)} kernel "
+            "events; "
+            f"Kernel 1 (line_opacity) {trace_ms['line_opacity']:.4f} ms, Kernel 2 "
+            f"(trace_kernel) {trace_ms['formal_solution']:.4f} ms from the trace; "
+            f"kernel_device_ms of a second run {prof_ms['line_opacity_kernel']:.4f} ms, "
+            f"{prof_ms['trace_kernel']:.4f} ms; launches {launches}")
+        log(f"phase 17 run_stardis stages (its log, 3 decimals): {stages}, sum "
+            f"{sum(stages.values()):.3f} s, warm wall under the trace {wall:.4f} s")
+        if not (len(traces) == 1 and trace_ms["line_opacity"] > 0
+                and trace_ms["formal_solution"] > 0):
+            failures.append(f"device_trace: files {traces}, kernel ms {trace_ms}")
+        # each logged stage is rounded to the millisecond
+        if not (sorted(stages) == ["plan", "solve"] and sum(stages.values()) <= wall + 1e-3):
+            failures.append(f"run_stardis stages {stages} against the wall {wall:.4f} s")
+
+        # (c) the kurucz-scale store, built and converted in memory
+        t0 = time.perf_counter()
+        frames = build_carsus_frames()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        carsus = convert_frames(frames)
+        convert_s = time.perf_counter() - t0
+        log(f"phase 17 carsus store in memory: build_carsus_frames {build_s:.3f} s, "
+            f"convert_frames {convert_s:.3f} s (host); {len(carsus.lines)} lines, "
+            f"{len(carsus.linelist_atoms)} VALD lines, {len(carsus.levels)} levels, Z "
+            f"{carsus.atom_data.atomic_number.min()}-{carsus.atom_data.atomic_number.max()}, "
+            f"molecules {carsus.molecule_data is not None}")
+        if not (len(carsus.lines) == CARSUS_LINES and len(carsus.linelist_atoms) ==
+                CARSUS_VALD_LINES and carsus.molecule_data is not None):
+            failures.append("carsus store: not the kurucz-scale sizes")
+        golden_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden")
+        store = RegressionData(golden_dir, "carsus_scale", rtol=GOLDEN_RTOL)
+        reset_counts()
+        for dtype in (torch.float64, torch.float32):
+            arrays = golden_arrays("carsus_scale", model_path, "cuda", dtype,
+                                   atom_data=copy.deepcopy(carsus))
+            if sorted(arrays) != sorted(store.keys()):
+                failures.append(f"golden carsus_scale: arrays {sorted(arrays)}")
+                continue
+            if dtype == torch.float64:
+                ratios = {k: (f"rtol {GOLDEN_RTOL:g}", golden_ratio(v, store[k]))
+                          for k, v in arrays.items()}
+            else:
+                ratios = {k: (f32_kind(k), f32_ratio(k, v, store[k])) for k, v in arrays.items()}
+            log(f"phase 17 golden carsus_scale on the card, {str(dtype)[6:]}: worst error / bar "
+                "by array (bar): " + ", ".join(f"{k} {r:.3e} ({bar})"
+                                               for k, (bar, r) in sorted(ratios.items())))
+            bad = {k: v for k, v in ratios.items() if not v[1] <= 1.0}
+            if bad:
+                failures.append(f"golden carsus_scale {dtype}: beyond the bar: {bad}")
+        launches = path_launches["carsus golden"] = read_counts()
+        if launches["line_opacity"] < 1 or launches["formal_solution"] < 1:
+            failures.append(f"carsus golden: a kernel was not launched: {launches}")
+
+        def carsus_run():
+            out = run_stardis(sim100aa_config(model_path), lam_q, device="cuda",
+                              dtype=torch.float32, atom_data=copy.deepcopy(carsus))
+            torch.cuda.synchronize()
+            return out
+
+        carsus_run()
+        reset_counts()
+        t0 = time.perf_counter()
+        spec = carsus_run().spectrum_nu.value
+        wall = time.perf_counter() - t0
+        launches = path_launches["carsus Sim100AA"] = read_counts()
+        config, cadata, cmodel = parse_config_to_model(sim100aa_config(model_path),
+                                                       atom_data=copy.deepcopy(carsus))
+        cplan = build_simulation_plan(config, cadata, cmodel, nus)
+        _, quants = stage_plasma_and_lines(
+            cplan, torch.as_tensor(cplan.temperatures, device=dev).float(),
+            torch.as_tensor(cplan.n_elem, device=dev).float(),
+            device_constants(cplan, torch.float32, dev))
+        alpha, gamma, doppler = quants["atomic"]
+        iw = lk.window_half_widths(alpha, gamma, doppler, cplan.d_nu, len(cplan.tracing_nus))
+        evals = voigt_evaluations(
+            cplan.tracing_nus, cplan.line_data.nu,
+            lk.line_center_indices(cplan.tracing_nus, cplan.line_data.nu),
+            gamma.double().cpu().numpy(), doppler.double().cpu().numpy(), iw.cpu().numpy())
+        k1_ms, k1_by = kernel1_bound(evals, 1, cplan.line_data.n_lines, iw.shape[1],
+                                     len(cplan.tracing_nus), 4)
+        k1_dev = kernel_device_ms(torch, carsus_run, ("line_opacity_kernel",))
+        log(f"phase 17 carsus store on Sim100AA's grid (20 theta, float32): "
+            f"{cplan.line_data.n_lines} VALD lines in the window; warm wall {wall:.3f} s; "
+            f"launches {launches}; F_nu[surface] min {spec.min():.4e}, max {spec.max():.4e}; "
+            f"Kernel 1 in-window evaluations by Voigt region {evals}, kernel1_bound "
+            f"{k1_ms:.4f} ms ({k1_by}), its device time in a further run "
+            f"{k1_dev['line_opacity_kernel']:.4f} ms (profiler)")
+        if not (spec.shape == (len(lams),) and np.isfinite(spec).all() and (spec > 0).all()):
+            failures.append("carsus Sim100AA F_nu not finite and positive")
+        if launches["line_opacity"] < 1 or launches["formal_solution"] < 1:
+            failures.append(f"carsus Sim100AA: a kernel was not launched: {launches}")
+        del carsus, frames, cplan, quants, alpha, gamma, doppler, iw
+
+        # (d) the compile cache, in two child processes
+        cache_dir = os.path.join(tmp.name, "kernel_cache")
+        repo = os.path.dirname(os.path.abspath(__file__))
+        build_dir = _cuda.DEFAULT_BUILD_DIR
+        before = sorted(os.listdir(build_dir))
+        env = dict(os.environ, STARDIS_COMPILE_CACHE=cache_dir, STARDIS_REPO=repo)
+        children = []
+        for i in range(2):
+            npy = os.path.join(tmp.name, f"cache_child{i}.npy")
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, "-c", CACHE_CHILD, npy], env=env,
+                                 capture_output=True, text=True, timeout=900)
+            child_s = time.perf_counter() - t0
+            if res.returncode != 0:
+                raise RuntimeError(f"compile-cache child {i} failed:\n{res.stderr[-2000:]}")
+            children.append((json.loads(res.stdout.strip().splitlines()[-1]), np.load(npy),
+                             child_s))
+        (first, f_first, s_first), (second, f_second, s_second) = children
+        in_cache = sorted(p for p in os.listdir(cache_dir) if p.endswith(".so"))
+        cached = (first["loaded"].startswith(cache_dir) and second["loaded"] == first["loaded"]
+                  and first["nvcc_ran"] == ["formal_solution"] and second["nvcc_ran"] == []
+                  and sorted(os.listdir(build_dir)) == before)
+        same = bool(np.array_equal(f_first.view(np.uint32), f_second.view(np.uint32)))
+        log(f"phase 17 compile cache: {in_cache} under STARDIS_COMPILE_CACHE; first child "
+            f"built it in {first['load_s']:.2f} s (nvcc ran for {first['nvcc_ran']}; process "
+            f"{s_first:.1f} s), second loaded it in {second['load_s']:.4f} s (nvcc ran for "
+            f"{second['nvcc_ran']}; process {s_second:.1f} s); _build/ unchanged "
+            f"{sorted(os.listdir(build_dir)) == before}; launches equal bit for bit: {same}")
+        if not (cached and same and len(in_cache) == 1):
+            failures.append(f"compile cache: cached {cached}, same {same}, files {in_cache}, "
+                            f"children {first}, {second}")
+    except Exception as exc:  # noqa: BLE001
+        failures.append(f"host surface phase: {exc!r}")
+    log(f"phase 17 took {time.perf_counter() - t_phase17:.1f} s")
     tmp.cleanup()
 
     if failures:

@@ -20,7 +20,9 @@ synthesizes them with per-chunk checkpoints into ``--scan-out``
         --grid 'models/*.mod' --scan-out scan_dir --batch-size 8
 
 ``--output`` writes the run to an HDF5 file (``util.hdf.output_to_hdf``;
-needs h5py).  ``--compile-cache`` belongs to XLA and has no counterpart.
+needs h5py).  ``--compile-cache DIR`` builds and loads the kernels in DIR
+(``util.compile_cache``), so runs that do not share a checkout share one
+set of builds; ``STARDIS_COMPILE_CACHE`` does the same without the flag.
 """
 
 from __future__ import annotations
@@ -103,7 +105,16 @@ def main(argv=None):
         "--batch-size", type=int, default=None,
         help="models per chunk for --grid (default: min(8, number of models))",
     )
+    parser.add_argument(
+        "--compile-cache", metavar="DIR",
+        help="build and load the kernels in DIR, kept across processes (default: "
+        "$STARDIS_COMPILE_CACHE, else the package's _build directory)",
+    )
     args = parser.parse_args(argv)
+    if args.compile_cache:
+        from .util.compile_cache import enable_compilation_cache
+
+        enable_compilation_cache(args.compile_cache)
 
     if args.segments != "auto":
         try:

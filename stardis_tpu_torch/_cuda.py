@@ -1,8 +1,10 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (sm_90a) into a
-shared library with a plain C interface, at first use, into ``_build/``
-(keyed by a hash of the source and flags), and loaded with ctypes.  The C
+shared library with a plain C interface, at first use, into ``BUILD_DIR``
+(``_build/`` unless ``util.compile_cache.enable_compilation_cache`` points
+it elsewhere; keyed by a hash of the source and flags), and loaded with
+ctypes.  The C
 entry points launch on the stream they are given and return
 ``cudaGetLastError()``; ``check`` turns a non-zero status into an exception.
 Nothing here runs at import time, so the package imports on machines
@@ -20,7 +22,9 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent / "_build"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parent / "_build"
+#: where kernels are built and loaded from (``util.compile_cache``)
+BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -74,9 +78,10 @@ def _build_and_load(name: str) -> ctypes.CDLL:
     src = CSRC / f"{name}.cu"
     flags = (*NVCC_FLAGS, *KERNEL_FLAGS.get(name, ()))
     digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
+    build_dir = BUILD_DIR  # read once, under the kernel's load lock
+    lib_path = build_dir / f"lib{name}_{digest}.so"
     if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        build_dir.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
         cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
         res = subprocess.run(cmd, capture_output=True, text=True)

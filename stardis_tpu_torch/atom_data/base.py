@@ -24,9 +24,9 @@ equal length.
 
 ``AtomData.to_hdf`` / ``from_hdf`` write and read the JAX package's
 ``stardis_tpu_atom_data_v1`` HDF5 layout (h5py, imported only by those
-two calls); carsus stores are converted to it with the JAX package's
-``stardis_tpu.atom_data.convert``.  Downloading published stores is not
-ported (it needs the network).
+two calls).  carsus stores are converted to it by ``atom_data.convert``
+(``convert_frames`` maps carsus-schema Tables in memory, without h5py) and
+fetched by ``atom_data.download.download_atom_data``.
 """
 
 from __future__ import annotations
@@ -39,13 +39,23 @@ from ..constants import C_CGS, E_ESU, M_E_CGS
 
 
 class Table:
-    """Named NumPy columns of equal length, in row order."""
+    """Named NumPy columns of equal length, in row order.
 
-    def __init__(self, columns: dict):
+    A table read from a carsus store also says which of its leading columns
+    held the store's row index (``index_cols``: the level names of a
+    MultiIndex, or the one named index; none for an unnamed 0..n-1 index),
+    and whether the store held it as a pandas Series (``series``: one value
+    column, named by the Series' name, "values" when it had none).  Column
+    names are the store's column labels, so they may be numbers (the
+    temperatures of the molecular tables)."""
+
+    def __init__(self, columns: dict, index_cols=(), series=False):
         self.columns = {k: np.asarray(v) for k, v in columns.items()}
+        self.index_cols = tuple(index_cols)
+        self.series = bool(series)
 
     def __getattr__(self, name):
-        if name == "columns":
+        if name in ("columns", "index_cols", "series"):
             raise AttributeError(name)
         try:
             return self.columns[name]
@@ -66,7 +76,12 @@ class Table:
 
     def take(self, index) -> "Table":
         """Rows by integer index array or boolean mask."""
-        return Table({k: v[index] for k, v in self.columns.items()})
+        return Table({k: v[index] for k, v in self.columns.items()}, self.index_cols,
+                     self.series)
+
+    def value_columns(self):
+        """The names of the columns that are not index columns, in order."""
+        return [k for k in self.columns if k not in self.index_cols]
 
 
 def einstein_a_from_f_lu(nu, g_lower, g_upper, f_lu):

@@ -19,7 +19,6 @@ from .parallel.sharding import Mesh
 from .pipeline import (
     build_simulation_plan,
     host_array,
-    not_ported,
     resolve_device,
     run_simulation,
 )
@@ -28,26 +27,23 @@ from .radiation_field.solver import gauss_legendre_thetas
 
 logger = logging.getLogger(__name__)
 
-#: the published stores the JAX package downloads by name
-#: (``stardis_tpu/atom_data/download.py``)
-KNOWN_ATOM_DATA = ("kurucz_cd23_chianti_H_He",)
-
 
 def _load_atom_data(spec: str) -> AtomData:
     """``builtin`` / ``builtin:<Zmax>``: the generated dataset, with its
-    linelist and molecular tables; a path: a stardis_tpu HDF store
-    (``AtomData.from_hdf``).  The published store names that the JAX
-    package downloads are not ported: they need the network."""
+    linelist and molecular tables; a published store name
+    (``atom_data.download.KNOWN_ATOM_DATA``, e.g.
+    ``kurucz_cd23_chianti_H_He``): downloaded and converted on first use
+    (``download_atom_data``); a path: a stardis_tpu HDF store
+    (``AtomData.from_hdf``)."""
     if spec.startswith("builtin"):
         z_max = int(spec.split(":", 1)[1]) if ":" in spec else 30
         return build_builtin_atom_data(
             max_atomic_number=z_max, include_linelists=True, include_molecules=True
         )
-    if spec in KNOWN_ATOM_DATA:
-        raise not_ported(
-            f"downloaded atom data {spec!r} (pass the path of a converted store)",
-            "not queued, atom_data/download.py needs the network",
-        )
+    from .atom_data import download
+
+    if spec in download.KNOWN_ATOM_DATA:
+        return AtomData.from_hdf(download.download_atom_data(spec))
     return AtomData.from_hdf(spec)
 
 
@@ -266,6 +262,9 @@ def run_stardis(config, tracing_lambdas_or_nus, add_config_dict=None,
     """
     check_segments(nu_segments, mesh)
     device = resolve_device(device, "run_stardis")
+    from .util.compile_cache import enable_compilation_cache
+
+    enable_compilation_cache()  # no-op unless STARDIS_COMPILE_CACHE is set
     if not hasattr(tracing_lambdas_or_nus, "to"):
         raise TypeError(
             "tracing_lambdas_or_nus must carry units, e.g. "
@@ -286,12 +285,23 @@ def run_stardis(config, tracing_lambdas_or_nus, add_config_dict=None,
             "device or with nu_segments, or drive parallel.sharding.shard_spectrum for "
             "sharded F_nu and I_nus"
         )
-    plan = build_simulation_plan(config, adata, stellar_model, tracing_nus_hz)
-    f_nu, total, opacities_dict, i_nus, state = run_simulation(
-        plan, device=device, dtype=dtype, mesh=mesh,
-        nu_segments=1 if mesh is not None else resolve_segments(nu_segments, plan, dtype,
-                                                                device),
-    )
+    from .util.profiling import StageTimer
+
+    timer = StageTimer(grid_cells=len(tracing_nus_hz) * stellar_model.no_of_depth_points)
+    logger.info("Creating plasma and opacity plan")
+    with timer.stage("plan"):
+        plan = build_simulation_plan(config, adata, stellar_model, tracing_nus_hz)
+    if mesh is None:
+        nu_segments = resolve_segments(nu_segments, plan, dtype, device)
+    logger.info("Solving plasma, opacities and transfer")
+    with timer.stage("solve"):
+        f_nu, total, opacities_dict, i_nus, state = run_simulation(
+            plan, device=device, dtype=dtype, mesh=mesh,
+            nu_segments=1 if mesh is not None else nu_segments,
+        )
+        if device.type == "cuda":  # the card's work belongs to the stage
+            torch.cuda.synchronize(device)
+    timer.report()
 
     thetas, weights = gauss_legendre_thetas(int(config.no_of_thetas))
     radiation_field = RadiationField(

@@ -124,6 +124,9 @@ def synthesize_grid(config, atom_data, stellar_models, tracing_nus_hz, out_dir,
     counts, ``out_dir`` and ``done`` (every chunk finished).
     """
     device = resolve_device(device, "synthesize_grid")
+    from .util.compile_cache import enable_compilation_cache
+
+    enable_compilation_cache()  # no-op unless STARDIS_COMPILE_CACHE is set
     lead = process_rank() == 0
     if mesh is not None and not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a parallel.sharding.Mesh, not {type(mesh).__name__}")

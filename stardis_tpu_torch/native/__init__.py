@@ -2,10 +2,12 @@
 
 A VALD line-list text parser: multi-GB VALD exports parse ~100x faster
 than with a Python loop.  ``vald_parser.cpp`` is built by g++ at first
-use into ``stardis_tpu_torch/_build/`` (keyed by a hash of the source and
-flags, as ``_cuda.load`` builds the CUDA kernels) and loaded with ctypes;
-nothing builds at import.  A pure-Python parser with the same semantics
-keeps the feature available where no compiler is present.
+use into ``BUILD_DIR`` (``stardis_tpu_torch/_build/`` unless
+``util.compile_cache.enable_compilation_cache`` points it elsewhere; keyed
+by a hash of the source and flags, as ``_cuda.load`` builds the CUDA
+kernels) and loaded with ctypes; nothing builds at import.  A pure-Python
+parser with the same semantics keeps the feature available where no
+compiler is present.
 """
 
 from __future__ import annotations
@@ -51,9 +53,10 @@ def _load_library():
     if cxx is None:
         raise RuntimeError("g++ not found")
     digest = hashlib.sha256(SRC.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libvald_parser_{digest}.so"
+    build_dir = BUILD_DIR  # read once: enable_compilation_cache may move it
+    lib_path = build_dir / f"libvald_parser_{digest}.so"
     if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        build_dir.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
         res = subprocess.run([cxx, *CXX_FLAGS, str(SRC), "-o", str(tmp)],
                              capture_output=True, text=True)

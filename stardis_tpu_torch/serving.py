@@ -97,6 +97,9 @@ class SpectralService:
                  atom_data=None):
         check_segments(nu_segments, mesh)
         self._device = resolve_device(device, "SpectralService")
+        from .util.compile_cache import enable_compilation_cache
+
+        enable_compilation_cache()  # no-op unless STARDIS_COMPILE_CACHE is set
         self._dtype = dtype
         self._nu_segments = 1 if mesh is not None else nu_segments
         self._mesh = mesh

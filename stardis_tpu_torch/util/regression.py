@@ -71,39 +71,56 @@ class RegressionData:
 # ----------------------------------------------------------------------
 # the JAX package's committed golden stores (tests/golden/), as the port
 # runs them: the configurations of tests/test_golden_regression.py
-# (solar_halpha) and tests/test_golden_plasma.py (solar_nad_plasma), the
-# arrays each store pins, and the float32 bars a float32 run is held to
+# (solar_halpha), tests/test_golden_plasma.py (solar_nad_plasma) and
+# tests/test_carsus_scale.py (carsus_scale), the arrays each store pins,
+# and the float32 bars a float32 run is held to
 # ----------------------------------------------------------------------
 
 #: each store's wavelength grid (start, stop, step) in AA
 GOLDEN_LAMBDAS = {"solar_halpha": (6555.0, 6575.0, 0.1),
-                  "solar_nad_plasma": (5885.0, 5900.0, 0.1)}
+                  "solar_nad_plasma": (5885.0, 5900.0, 0.1),
+                  "carsus_scale": (5150.0, 5170.0, 0.02)}
 #: the stores' own tolerance (float64)
 GOLDEN_RTOL = 1e-6
 
 
-def golden_config(key, model_path):
+def golden_config(key, model_path, atom_data="builtin:30"):
     """The configuration of golden store ``key`` on a MARCS model file
-    (``io.synthetic.write_marcs_file``'s sun)."""
+    (``io.synthetic.write_marcs_file``'s sun).  carsus_scale's atom data
+    is the kurucz-scale store (``carsus_scale_atom_data``): pass its
+    converted file as ``atom_data``, or hand the AtomData to the run."""
     line = {"disable": False,
             "broadening": ["radiation", "linear_stark", "quadratic_stark", "van_der_waals"]}
-    if key == "solar_nad_plasma":
+    if key in ("solar_nad_plasma", "carsus_scale"):
         line["vald_linelist"] = {"use_linelist": True, "use_vald_broadening": True}
     return {
         "stardis_config_version": 1.0,
-        "atom_data": "builtin:30",
+        "atom_data": str(atom_data),
         "input_model": {"type": "marcs", "fname": str(model_path), "final_atomic_number": 30},
         "opacity": {"bf": {"H_I": {}}, "ff": {"H_I": {}}, "rayleigh": ["H"],
                     "disable_electron_scattering": False, "line": line},
         "no_of_thetas": 10,
-        "result_options": {"return_plasma": True} if key == "solar_halpha" else {},
+        "result_options": ({} if key == "solar_nad_plasma" else {"return_plasma": True}),
     }
 
 
-def golden_arrays(key, model_path, device, dtype):
+def carsus_scale_atom_data():
+    """carsus_scale's atom data, built in memory (no h5py): the kurucz-scale
+    carsus tables of ``atom_data.synthetic_carsus.build_carsus_frames`` at
+    their defaults (150,000 lines, 120,000 VALD lines, Z <= 30, molecules),
+    converted by ``atom_data.convert.convert_frames``."""
+    from ..atom_data.convert import convert_frames
+    from ..atom_data.synthetic_carsus import build_carsus_frames
+
+    return convert_frames(build_carsus_frames())
+
+
+def golden_arrays(key, model_path, device, dtype, atom_data=None):
     """{name: host array} of every array golden store ``key`` pins, from the
     port's run of its configuration on ``device`` in ``dtype``: solar_halpha
-    through ``run_stardis``, solar_nad_plasma through the plan and
+    and carsus_scale through ``run_stardis`` (carsus_scale on ``atom_data``,
+    by default ``carsus_scale_atom_data()``; the run restricts it to the
+    model's elements), solar_nad_plasma through the plan and
     ``pipeline.run_simulation`` (the plasma surface, the static tables, the
     line quantities, every opacity and F_nu)."""
     import torch
@@ -118,6 +135,17 @@ def golden_arrays(key, model_path, device, dtype):
 
     cfg = golden_config(key, model_path)
     lams = u.Quantity(np.arange(*GOLDEN_LAMBDAS[key]), u.AA)
+    if key == "carsus_scale":
+        adata = carsus_scale_atom_data() if atom_data is None else atom_data
+        out = run_stardis(cfg, lams, device=device, dtype=dtype, atom_data=adata)
+        lo, hi = GOLDEN_LAMBDAS[key][:2]
+        wl = adata.linelist_atoms.wavelength
+        return {
+            "nus": np.asarray(out.nus),
+            "spectrum_nu": np.asarray(out.spectrum_nu),
+            "n_lines_in_window": np.asarray(int(((wl >= lo) & (wl <= hi)).sum())),
+            "electron_densities": host(out.stellar_plasma.electron_densities),
+        }
     if key == "solar_halpha":
         out = run_stardis(cfg, lams, device=device, dtype=dtype)
         plasma = out.stellar_plasma
@@ -168,7 +196,7 @@ def golden_arrays(key, model_path, device, dtype):
 #:     the CPU float32 run needs 2.3e-5 relative (Saha phi) above that floor;
 #: "table": host tables the dtype does not touch, at the store's rtol.
 F32_KINDS = {
-    "lambdas": "table", "zs": "table", "chi": "table", "level_energy": "table",
+    "lambdas": "table", "nus": "table", "n_lines_in_window": "table", "zs": "table", "chi": "table", "level_energy": "table",
     "level_g": "table", "metastability": "table", "line_nu": "table",
     "spectrum_nu": "grid", "spectrum_lambda": "grid", "F_nu": "grid",
     "total_alphas": "grid", "alpha_line_at_nu": "grid", "alpha_bf": "grid",

@@ -117,16 +117,24 @@ def test_to_hdf_is_read_back_by_jax_exactly(jax_store, tmp_path):
                                       getattr(ref.molecule_data, name), check_exact=True)
 
 
-def test_from_hdf_refuses_other_files_and_store_names(tmp_path):
+def test_from_hdf_refuses_other_files_and_store_names(tmp_path, jax_store, monkeypatch):
+    """Another file's format is refused; a published store's name is not
+    read as a path but fetched by ``download_atom_data`` (stubbed here with
+    the JAX store's path: the tests reach no network) and read from there."""
     path = tmp_path / "other.h5"
     with h5py.File(path, "w") as f:
         f.attrs["format"] = "something else"
     with pytest.raises(ValueError, match="not a stardis_tpu atom-data file"):
         AtomData.from_hdf(path)
+    from stardis_tpu_torch.atom_data import download
     from stardis_tpu_torch.base import _load_atom_data
 
-    with pytest.raises(NotImplementedError, match="network"):
-        _load_atom_data("kurucz_cd23_chianti_H_He")
+    store, ref, _ = jax_store
+    fetched = []
+    monkeypatch.setattr(download, "download_atom_data",
+                        lambda spec: fetched.append(spec) or str(store))
+    _assert_same_as_jax(_load_atom_data("kurucz_cd23_chianti_H_He"), ref)
+    assert fetched == ["kurucz_cd23_chianti_H_He"]
 
 
 def _config(model_path, atom_data):
