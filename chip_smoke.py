@@ -69,7 +69,13 @@ Phases (any failure exits non-zero and prints no result):
      against the plain versions (rtol 1e-4), Kernel 1's own [16, D, N]
      sum against plain in both window modes (1e-4 of each row's maximum),
      and every member against run_stardis of that model (rtol 1e-5);
-     atmospheres/s; a profiled run; and a 4-member
+     atmospheres/s; a profiled run; stage 1 timed and profiled three ways
+     (16 model-by-model calls, one eager call over the model axis, a
+     replay of the CUDA graph run_batch captured), the replay equal to the
+     eager call bit for bit, the graph pool's bytes beside util.memory's
+     line planes; run_batch's F_nu equal bit for bit to the eager stage
+     through the same spectrum, which is timed and profiled too
+     (atmospheres/s with and without the graph); and a 4-member
      batch of spherical giants with file opacities against the individual
      runs (per-model corrections and cross-sections);
   9. the memory model: run_stardis on the Sim100AA configuration with 10k
@@ -109,7 +115,9 @@ Phases (any failure exits non-zero and prints no result):
      the unsegmented service (rtol 1e-6); a spherical-giant service with
      file tables answering a 4200 K request (one sigma re-interpolation)
      against run_stardis (rtol 1e-5); synthesize_batch of the 16 batch
-     models against run_batch (rtol 1e-6); one profiled request;
+     models against run_batch (rtol 1e-6); one profiled request; each
+     request (stage 1 replayed from the service's graph) equal bit for
+     bit to the eager stage 1 through the same spectrum;
  12. a grid scan of the 16 batch models in chunks of 8, stopped after one
      chunk and resumed, equal bit for bit to an uninterrupted scan; and
      `python -m stardis_tpu_torch` on a JSON Sim100AA config with
@@ -625,6 +633,20 @@ def peak_bytes(torch, fn):
     out = fn()
     torch.cuda.synchronize()
     return torch.cuda.max_memory_allocated() - base, out
+
+
+def sync_ms(torch, fn, reps):
+    """Median milliseconds of ``reps`` calls of ``fn``, each ended by
+    ``torch.cuda.synchronize()`` (host clock), after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return sorted(walls)[reps // 2] * 1e3
 
 
 def cuda_ms(torch, fn, reps, warm=True):
@@ -1477,7 +1499,9 @@ def main():
     # --- 8. the batch --------------------------------------------------------
     try:
         from stardis_tpu_torch.base import read_stellar_model
-        from stardis_tpu_torch.parallel.batch import make_batch, run_batch
+        from stardis_tpu_torch.parallel.batch import captured_stage1, make_batch, run_batch
+        from stardis_tpu_torch.pipeline import validate_line_quants
+        from stardis_tpu_torch.util import memory as mem
 
         b_lams = np.arange(*BATCH_LAMBDA)
         b_nus = u.Quantity(b_lams, u.AA).to(u.Hz, u.spectral()).value
@@ -1518,8 +1542,77 @@ def main():
         if launches["line_opacity"] != 1 or launches["formal_solution"] != 1:
             failures.append(f"batch: expected one launch of each kernel: {launches}")
         p_wall, busy, ops = device_busy(torch, batch_run)
-        log(f"batch profiled run: wall {p_wall:.4f} s, device busy {busy * 1e3:.2f} ms "
-            f"({busy / p_wall:.1%} of the wall), {ops} device ops")
+        log(f"batch profiled run (stage 1 replayed from its captured graph): wall "
+            f"{p_wall:.4f} s, device busy {busy * 1e3:.2f} ms ({busy / p_wall:.1%} of the "
+            f"wall), {ops} device ops")
+
+        # stage 1 three ways: model by model (16 calls on 1-D inputs, the
+        # way run_batch ran it before the model axis), one eager call over
+        # the model axis, and a replay of the graph run_batch captured
+        temps = torch.as_tensor(batch.temperatures, device=dev).to(torch.float32)
+        n_elem = torch.as_tensor(batch.n_elem, device=dev).to(torch.float32)
+        bconsts = device_constants(bplan, torch.float32, dev)
+        graph = captured_stage1(bplan, BATCH_MODELS, torch.float32, dev)
+
+        def stage1_replay():
+            with graph.replay(batch.temperatures, batch.n_elem):
+                pass
+
+        stage1_ways = {
+            "model by model": lambda: [stage_plasma_and_lines(bplan, temps[b], n_elem[b], bconsts)
+                                       for b in range(BATCH_MODELS)],
+            "one eager call": lambda: stage_plasma_and_lines(bplan, temps, n_elem, bconsts),
+            "graph replay": stage1_replay,
+        }
+        for label, fn in stage1_ways.items():
+            stage_ms = sync_ms(torch, fn, 5)
+            p_wall, busy, ops = device_busy(torch, lambda: (fn(), torch.cuda.synchronize()))
+            log(f"batch stage 1, {label}: {stage_ms:.3f} ms (median of 5, synchronised); "
+                f"profiled: device busy {busy * 1e3:.3f} ms of {p_wall * 1e3:.3f} ms, "
+                f"{ops} device ops")
+        flat = lambda out: list(out[0]) + [x for t in out[1].values() for x in t]  # noqa: E731
+        eager_out = flat(stage_plasma_and_lines(bplan, temps, n_elem, bconsts))
+        with graph.replay(batch.temperatures, batch.n_elem) as out:
+            same = all(torch.equal(a, b) for a, b in zip(flat(out), eager_out))
+        log(f"batch stage 1: graph replay == eager call bit for bit ({len(eager_out)} "
+            f"tensors): {same}")
+        if not same:
+            failures.append("batch stage 1: the graph replay differs from the eager call")
+        n_cols = BATCH_MODELS * len(bplan.temperatures)
+        planes = 3 * bplan.line_data.n_lines * n_cols * 4
+        log(f"batch stage-1 graph pool: {graph.pool_bytes / 1e6:.3f} MB; util.memory's "
+            f"stage-1 line planes (3 of LINE_ARRAYS, [{bplan.line_data.n_lines}, {n_cols}] "
+            f"float32) {planes / 1e6:.3f} MB, all its {mem.LINE_ARRAYS} line planes "
+            f"{mem.fixed_overhead_bytes(bplan) * BATCH_MODELS / 1e6:.3f} MB")
+
+        def eager_batch():
+            """run_batch's steps with the eager stage 1 in place of the graph."""
+            consts = device_constants(bplan, torch.float32, dev)
+            state, quants = stage_plasma_and_lines(bplan, temps, n_elem, consts)
+            validate_line_quants(quants)
+            lines = prepare_lines(bplan, state, quants, consts, batch.file_sigmas)
+            f = spectrum_batch(bplan, state, lines, consts, batch.ray_distances,
+                               batch.photospheric_correction, batch.file_sigmas)[0]
+            torch.cuda.synchronize()
+            return f
+
+        eager_batch()
+        eager_walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            f_eager = eager_batch()
+            eager_walls.append(time.perf_counter() - t0)
+        p_wall, busy, ops = device_busy(torch, eager_batch)
+        log(f"batch without the graph (eager stage 1): walls "
+            + ", ".join(f"{w:.4f}" for w in eager_walls)
+            + f" s; {BATCH_MODELS / sorted(eager_walls)[1]:.1f} atmospheres/s (median) against "
+            f"{BATCH_MODELS / wall:.1f} with the graph; profiled: device busy "
+            f"{busy * 1e3:.2f} ms ({busy / p_wall:.1%} of {p_wall:.4f} s), {ops} device ops")
+        same = torch.equal(f_batch, f_eager)
+        log(f"batch F_nu: run_batch (graph) == the eager stage through the same spectrum "
+            f"bit for bit: {same}")
+        if not same:
+            failures.append("batch F_nu: the graph run differs from the eager run")
         fp = batch_run(plain=True)
         rel, zeros_ok = rel_err(f_batch, fp)
         log(f"batch kernels vs plain versions: F_nu max rel err {rel:.3e} (bound 1e-4)")
@@ -1527,11 +1620,7 @@ def main():
             failures.append(f"batch kernel vs plain rel err {rel:.3e}")
         # Kernel 1's own [16, D, N] output on the model axis, in both
         # window modes, against its plain version (phase 3's bound)
-        temps = torch.as_tensor(batch.temperatures, device=dev).to(torch.float32)
-        n_elem = torch.as_tensor(batch.n_elem, device=dev).to(torch.float32)
-        bconsts = device_constants(bplan, torch.float32, dev)
-        states, quants = zip(*(stage_plasma_and_lines(bplan, temps[b], n_elem[b], bconsts)
-                               for b in range(BATCH_MODELS)))
+        states, quants = stage_plasma_and_lines(bplan, temps, n_elem, bconsts)
         for mode in ("reference", "accuracy"):
             mplan = dataclasses.replace(bplan, window_mode=mode)
             ok, op = (spectrum_batch(
@@ -1543,7 +1632,7 @@ def main():
                 f"{list(ok.shape)}, max row err / row max {row:.3e} (bound 1e-4)")
             if not (ok.shape[0] == BATCH_MODELS and row <= 1e-4 and rows_ok):
                 failures.append(f"batch {mode} alpha_line_at_nu row err {row:.3e}")
-        del states, quants, ok, op, bconsts
+        del states, quants, ok, op, bconsts, graph, eager_out, f_eager
         worst = 0.0
         for i, path in enumerate(paths):
             cfg_i = copy.deepcopy(b_cfg)
@@ -1876,8 +1965,8 @@ def main():
         # the continuum of each range against the whole grid's columns
         f_ranges = segment_ranges(FLAGSHIP_POINTS, FLAGSHIP_SEGMENTS)
         nus_t = torch.as_tensor(fplan.tracing_nus, device=dev).to(torch.float32)
-        whole = continuum_batch(fplan, [state], nus_t)
-        parts = [continuum_batch(fplan, [state], nus_t[a:b], pixels=slice(a, b))
+        whole = continuum_batch(fplan, state, nus_t, fconsts)
+        parts = [continuum_batch(fplan, state, nus_t[a:b], fconsts, pixels=slice(a, b))
                  for a, b in f_ranges]
         log("flagship continuum in the ranges == the whole grid's columns bit for bit: "
             + str({k: torch.equal(torch.cat([q[k] for q in parts], dim=-1), v)
@@ -2066,6 +2155,7 @@ def main():
     # --- 11. serving ----------------------------------------------------------
     try:
         from stardis_tpu_torch.base import read_stellar_model
+        from stardis_tpu_torch.pipeline import elemental_densities, model_geometry
         from stardis_tpu_torch.serving import SpectralService
 
         serve_paths = []
@@ -2098,10 +2188,26 @@ def main():
             worst = max(worst, float(np.abs(out["spectrum_nu"] / ref - 1.0).max()))
         log(f"serving Sim100AA ({N_LINES} lines), Teff {SERVE_TEFFS}: requests against "
             f"run_stardis max rel err {worst:.3e} (bound 1e-5); warm request walls "
-            + ", ".join(f"{w:.4f}" for w in svc_walls) + " s; warm run_stardis walls "
+            + ", ".join(f"{w:.4f}" for w in svc_walls) + " s (stage 1 replayed from the "
+            "service's captured graph, pool "
+            f"{svc._stage1.pool_bytes / 1e6:.3f} MB); warm run_stardis walls "
             + ", ".join(f"{w:.4f}" for w in run_walls) + f" s; stats {svc.stats}")
         if not worst <= 1e-5:
             failures.append(f"serving against run_stardis rel err {worst:.3e}")
+        # each request against the service's plan run with the eager stage 1
+        for teff, m, out in zip(SERVE_TEFFS, s_models, served):
+            state, lq = stage_plasma_and_lines(
+                svc._plan, torch.as_tensor(np.asarray(m.temperatures), device=dev).float(),
+                torch.as_tensor(elemental_densities(m, svc._plan.tables), device=dev).float(),
+                svc._consts)
+            rays = model_geometry(m, svc._thetas)[0]
+            f_eager = stage_spectrum(svc._plan, state, lq, svc._consts,
+                                     ray_distances=rays)[0].cpu().numpy()
+            same = bool(np.array_equal(out["F_nu"], f_eager))
+            log(f"served {teff:.0f} K request == the eager stage 1 through the same "
+                f"spectrum bit for bit: {same}")
+            if not same:
+                failures.append(f"served {teff:.0f} K request differs from the eager stage")
         svc3 = SpectralService(s_cfg, lam_q, atom_data=s_adata, nu_segments=RANGE_SEGMENTS)
         reset_counts()
         served3 = [svc3.synthesize(m) for m in s_models]

@@ -9,6 +9,7 @@ alpha, gamma and Doppler widths from the plasma state.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -239,43 +240,95 @@ def synth_molecule_linelist(atom_data, n_lines, lam_lo=6450.0, lam_hi=6650.0, se
     return atom_data
 
 
-def _column(x, like):
-    """[L] host array -> [L, 1] tensor of ``like``'s dtype and device."""
-    return torch.as_tensor(np.asarray(x, dtype=np.float64), device=like.device).to(
-        like.dtype
-    )[:, None]
+class DeviceLineColumns(NamedTuple):
+    """A LineData's per-line columns as [L, 1] tensors of one dtype and
+    device (the indices [L], int64), uploaded once per plan
+    (``device_line_columns``, kept in ``pipeline.DeviceConstants``) so that
+    stage 1 uploads nothing."""
+
+    nu: torch.Tensor
+    ion_p1: torch.Tensor  # charge + 1, the interior charge the electron sees
+    chi: torch.Tensor  # ionization energy of the next stage, erg
+    e_up: torch.Tensor
+    e_lo: torch.Tensor
+    A_ul: torch.Tensor
+    mass: torch.Tensor
+    atomic_number: torch.Tensor  # [L, 1] int64
+    lower: torch.Tensor | None  # [L] int64 flat lower levels (TARDIS path)
+    f_lu: torch.Tensor | None
+    vald_slot: torch.Tensor | None  # [L] int64 ion slots (VALD path)
+    vald_gf: torch.Tensor | None
+    vald_e_low_erg: torch.Tensor | None
+    vald_stark: torch.Tensor | None
+    vald_waals: torch.Tensor | None
 
 
-def compute_vald_gamma(line_data: LineData, state, temperatures, broadening_flags):
+def device_line_columns(ld: LineData, dtype, device) -> DeviceLineColumns:
+    """Upload a LineData's per-line columns (float64 on the host, then
+    cast to ``dtype``)."""
+
+    def col(x):
+        if x is None:
+            return None
+        return torch.as_tensor(np.asarray(x, dtype=np.float64), device=device).to(dtype)[:, None]
+
+    def index(x):
+        return None if x is None else torch.as_tensor(np.asarray(x, dtype=np.int64),
+                                                      device=device)
+
+    return DeviceLineColumns(
+        nu=col(ld.nu),
+        ion_p1=col(np.asarray(ld.ion_number, dtype=np.float64) + 1.0),
+        chi=col(ld.ionization_energy),
+        e_up=col(ld.level_energy_upper),
+        e_lo=col(ld.level_energy_lower),
+        A_ul=col(ld.A_ul),
+        mass=col(ld.mass),
+        atomic_number=index(ld.atomic_number)[:, None],
+        lower=index(ld.lower_level_flat),
+        f_lu=col(ld.f_lu),
+        vald_slot=index(ld.vald_slot),
+        vald_gf=col(ld.vald_gf),
+        vald_e_low_erg=col(ld.vald_e_low_erg),
+        vald_stark=col(ld.vald_stark),
+        vald_waals=col(ld.vald_waals),
+    )
+
+
+def _columns_on(line_data, like):
+    """``line_data`` as DeviceLineColumns on ``like``'s dtype and device:
+    as it is when it already is, else uploaded."""
+    if isinstance(line_data, DeviceLineColumns):
+        return line_data
+    return device_line_columns(line_data, like.dtype, like.device)
+
+
+def compute_vald_gamma(line_data, state, temperatures, broadening_flags):
     """VALD-parameter broadening: radiation from A_ul, stark/vdW from the
     per-line VALD columns (linear Stark still computed for hydrogen lines),
-    summed then halved (HWHM -> FWHM)."""
-    ld = line_data
+    summed then halved (HWHM -> FWHM).
+
+    line_data : LineData, or its DeviceLineColumns"""
+    ld = _columns_on(line_data, temperatures)
     t = temperatures
     n_e = state.electron_densities
 
-    gamma = torch.zeros((ld.n_lines, t.shape[0]), dtype=t.dtype, device=t.device)
-    ion_p1 = _column(ld.ion_number, t) + 1.0
-    chi = _column(ld.ionization_energy, t)
-    e_up = _column(ld.level_energy_upper, t)
-    e_lo = _column(ld.level_energy_lower, t)
+    gamma = torch.zeros((ld.nu.shape[0], t.shape[0]), dtype=t.dtype, device=t.device)
+    ion_p1, chi, e_up, e_lo = ld.ion_p1, ld.chi, ld.e_up, ld.e_lo
     if "radiation" in broadening_flags:
-        gamma = gamma + _column(ld.A_ul, t)
+        gamma = gamma + ld.A_ul
     if "linear_stark" in broadening_flags:
         n_eff_up = calc_n_effective(ion_p1, chi, e_up)
         n_eff_lo = calc_n_effective(ion_p1, chi, e_lo)
         g_lin = calc_gamma_linear_stark(n_eff_up, n_eff_lo, n_e[None, :])
-        h_mask = torch.as_tensor(ld.atomic_number == 1, device=t.device)[:, None]
-        gamma = gamma + torch.where(h_mask, g_lin, 0.0)
+        gamma = gamma + torch.where(ld.atomic_number == 1, g_lin, 0.0)
     if "quadratic_stark" in broadening_flags and ld.vald_stark is not None:
-        gamma = gamma + calc_vald_stark_gamma(
-            n_e[None, :], _column(ld.vald_stark, t), t[None, :]
-        )
+        gamma = gamma + calc_vald_stark_gamma(n_e[None, :], ld.vald_stark, t[None, :])
     if "van_der_waals" in broadening_flags and ld.vald_waals is not None:
         gamma = gamma + calc_vald_vdW(
-            _column(ld.vald_waals, t),
+            ld.vald_waals,
             t,
-            _column(ld.mass, t),
+            ld.mass,
             e_up,
             e_lo,
             state.h_neutral_density,
@@ -286,7 +339,7 @@ def compute_vald_gamma(line_data: LineData, state, temperatures, broadening_flag
 
 
 def compute_line_quantities(
-    line_data: LineData,
+    line_data,
     state,
     temperatures,
     microturbulence_cgs,
@@ -295,38 +348,38 @@ def compute_line_quantities(
 ):
     """Per-line per-depth quantities on the device of ``temperatures``.
 
+    line_data : LineData, or its DeviceLineColumns (stage 1 passes the
+        plan's, so that it uploads nothing)
     Returns (alpha [L, D], gamma [L, D], doppler_width [L, D]).  The
     stimulated-emission factor is the LTE closed form 1 - e^{-h nu / k T}.
     """
-    ld = line_data
+    ld = _columns_on(line_data, temperatures)
     t = temperatures
-    nu = _column(ld.nu, t)  # [L, 1]
+    nu = ld.nu  # [L, 1]
     stim = 1.0 - torch.exp(-H_CGS * nu / (K_B_CGS * t[None, :]))
 
-    if ld.lower_level_flat is not None:
-        lower = torch.as_tensor(ld.lower_level_flat, device=t.device)
-        n_lower = state.level_number_density[lower]
-        alpha = ALPHA_COEFFICIENT * _column(ld.f_lu, t) * n_lower * stim
+    if ld.lower is not None:
+        n_lower = state.level_number_density[ld.lower]
+        alpha = ALPHA_COEFFICIENT * ld.f_lu * n_lower * stim
     else:
         # VALD: n_lower/g_lo = (N_ion / U) e^{-beta E_low};
         # alpha = C * gf * (N_ion/U) e^{-beta E_low} * stim
-        slot = torch.as_tensor(ld.vald_slot, device=t.device)
+        slot = ld.vald_slot
         n_over_u = state.ion_number_density[slot] / state.partition_function[slot]
-        boltz = torch.exp(-_column(ld.vald_e_low_erg, t) * state.beta[None, :])
-        alpha = ALPHA_COEFFICIENT * _column(ld.vald_gf, t) * n_over_u * boltz * stim
+        boltz = torch.exp(-ld.vald_e_low_erg * state.beta[None, :])
+        alpha = ALPHA_COEFFICIENT * ld.vald_gf * n_over_u * boltz * stim
 
-    mass = _column(ld.mass, t)
-    doppler = calc_doppler_width(nu, t[None, :], mass, microturbulence_cgs)
+    doppler = calc_doppler_width(nu, t[None, :], ld.mass, microturbulence_cgs)
     if use_vald_broadening:
         gamma = compute_vald_gamma(ld, state, t, broadening_flags)
         return alpha, gamma, doppler
     gamma = calc_gamma(
-        atomic_number=torch.as_tensor(ld.atomic_number, device=t.device)[:, None],
-        ion_number=_column(ld.ion_number, t) + 1.0,
-        ionization_energy=_column(ld.ionization_energy, t),
-        upper_level_energy=_column(ld.level_energy_upper, t),
-        lower_level_energy=_column(ld.level_energy_lower, t),
-        A_ul=_column(ld.A_ul, t),
+        atomic_number=ld.atomic_number,
+        ion_number=ld.ion_p1,
+        ionization_energy=ld.chi,
+        upper_level_energy=ld.e_up,
+        lower_level_energy=ld.e_lo,
+        A_ul=ld.A_ul,
         electron_density=state.electron_densities,
         temperature=t,
         h_density=state.h_neutral_density,

@@ -6,22 +6,31 @@ Teff/logg grid of models).  All models of a batch share the config
 geometry kind; temperatures, densities, geometry, the spherical correction
 and the file-opacity cross-sections vary per model.
 
-Stage 1 (plasma and line quantities) and the continuum run model by model;
-each kernel runs the whole batch in one launch (Kernel 1 once per line
-set, Kernel 2 once), through the same ``pipeline.spectrum_batch`` that a
-single ``run_stardis`` uses with a batch of one.  On a mesh
+Stage 1 (plasma and line quantities), the continuum and the source run
+once for the whole batch, its models folded into the depth columns (the
+port of ``jax.vmap``); each kernel runs the whole batch in one launch
+(Kernel 1 once per line set, Kernel 2 once), through the same
+``pipeline.spectrum_batch`` that a single ``run_stardis`` uses with a
+batch of one.  On the card, without autograd and without a mesh, stage 1
+is captured once per (plan, B, dtype, device) in a CUDA graph
+(``pipeline.CapturedStage1``) and replayed by later batches, as the JAX
+package keeps its jitted stage 1 in ``_STAGE1_CACHE``.  On a mesh
 (``parallel.sharding``) each batch row runs a contiguous chunk of the
-models, stage 1 and the spectrum on the devices of its entries.
+models, stage 1 (eager, one call per chunk) and the spectrum on the
+devices of its entries.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
+from contextlib import contextmanager
 
 import numpy as np
 import torch
 
 from ..pipeline import (
+    CapturedStage1,
     SimulationPlan,
     _stage,
     build_simulation_plan,
@@ -124,6 +133,9 @@ def run_batch(plan: SimulationPlan, batch: BatchInputs, mesh=None, device="cuda"
     device, dtype : as run_simulation (the card in float32 by default; a
         CUDA device without a GPU raises); ``plain`` runs the kernels' plain
         torch versions.  ``timings`` receives the wall time of each stage.
+    Stage 1 runs once for the batch: on the card, without autograd, as a
+    replay of the CUDA graph captured for (plan, B, dtype, device) on the
+    first such call (``captured_stage1``), else eagerly.
     F_nu carries gradients to ``batch.temperatures`` / ``batch.n_elem``
     when they are tensors that require grad (Kernels 1b and 2b take the
     whole batch in one launch each); the file-table cross-sections are host
@@ -159,18 +171,17 @@ def run_batch(plan: SimulationPlan, batch: BatchInputs, mesh=None, device="cuda"
             file_sigmas=batch.file_sigmas, plain=plain, timings=timings)
         return f_nu
     device = resolve_device(device, "run_batch")
-    consts = device_constants(plan, dtype, device)
-    states, quants = _stage1(plan, batch, 0, len(batch.temperatures), consts, dtype, timings)
-    with _stage(timings, "line_opacity", device):
-        lines = prepare_lines(plan, states, quants, consts, batch.file_sigmas, plain)
-    f_nu, *_ = spectrum_batch(
-        plan, states, lines, consts,
-        ray_distances=batch.ray_distances,
-        photospheric_correction=correction,
-        file_sigmas=batch.file_sigmas,
-        plain=plain,
-        timings=timings,
-    )
+    with _batch_stage1(plan, batch, device, dtype, timings) as (consts, state, quants):
+        with _stage(timings, "line_opacity", device):
+            lines = prepare_lines(plan, state, quants, consts, batch.file_sigmas, plain)
+        f_nu, *_ = spectrum_batch(
+            plan, state, lines, consts,
+            ray_distances=batch.ray_distances,
+            photospheric_correction=correction,
+            file_sigmas=batch.file_sigmas,
+            plain=plain,
+            timings=timings,
+        )
     return f_nu
 
 
@@ -182,22 +193,64 @@ def make_batch_mesh(n_devices=None, devices=None):
     return Mesh(list(devices), ("batch",))
 
 
+#: captured stage-1 graphs kept at once: each pins its memory pool (the
+#: stage's outputs and workspace for its B models), which a compiled XLA
+#: executable does not, so the cache stays small
+STAGE1_CACHE_LIMIT = 4
+# (id(plan), B, dtype, device) -> CapturedStage1.  id(plan) is a safe key:
+# the entry holds its plan, so a live entry keeps the id from being reused;
+# eviction drops the oldest entry, its graph and its pool together.
+_STAGE1_CACHE = {}
+_CACHE_LOCK = threading.Lock()
+
+
+def captured_stage1(plan, n_models, dtype, device) -> CapturedStage1:
+    """The cached CUDA graph of stage 1 for ``n_models`` models of ``plan``,
+    captured (with the plan's device constants) on first use; creation is
+    atomic, so concurrent callers share one capture."""
+    key = (id(plan), n_models, dtype, torch.device(device))
+    with _CACHE_LOCK:
+        entry = _STAGE1_CACHE.get(key)
+        if entry is None:
+            if len(_STAGE1_CACHE) >= STAGE1_CACHE_LIMIT:
+                _STAGE1_CACHE.pop(next(iter(_STAGE1_CACHE)))
+            entry = _STAGE1_CACHE[key] = CapturedStage1(
+                plan, device_constants(plan, dtype, device), n_models)
+    return entry
+
+
+def _requires_grad(*inputs):
+    return any(torch.is_tensor(x) and x.requires_grad for x in inputs)
+
+
+@contextmanager
+def _batch_stage1(plan, batch, device, dtype, timings):
+    """(consts, state, quants) of the whole batch, valid inside the block:
+    the cached CUDA graph replayed on the card (under its lock, which the
+    block holds), the eager stage on the CPU or under autograd."""
+    n_models = len(batch.temperatures)
+    if device.type != "cuda" or _requires_grad(batch.temperatures, batch.n_elem):
+        consts = device_constants(plan, dtype, device)
+        yield (consts, *_stage1(plan, batch, 0, n_models, consts, dtype, timings))
+        return
+    graph = captured_stage1(plan, n_models, dtype, device)
+    with graph.replay(batch.temperatures, batch.n_elem, timings) as (state, quants):
+        with _stage(timings, "validate", device):
+            validate_line_quants(quants)
+        yield graph.consts, state, quants
+
+
 def _stage1(plan, batch, m0, m1, consts, dtype, timings=None):
     """Stage 1 of the batch's models [m0, m1) on the device of ``consts``,
-    model by model, and one finiteness check of their line quantities:
-    (states, quants)."""
+    eager, in one call, and one finiteness check of their line quantities:
+    (state, quants) with the model axis."""
     device = consts.tracing_nus.device
-    states, quants = [], []
     with _stage(timings, "plasma_and_lines", device):
-        temps = torch.as_tensor(batch.temperatures[m0:m1], device=device).to(dtype)
-        n_elem = torch.as_tensor(batch.n_elem[m0:m1], device=device).to(dtype)
-        for b in range(m1 - m0):
-            state, lq = stage_plasma_and_lines(plan, temps[b], n_elem[b], consts)
-            states.append(state)
-            quants.append(lq)
+        temps, n_elem = (x[m0:m1] if torch.is_tensor(x)
+                         else torch.as_tensor(x[m0:m1], device=device)
+                         for x in (batch.temperatures, batch.n_elem))
+        state, quants = stage_plasma_and_lines(plan, temps.to(device, dtype),
+                                               n_elem.to(device, dtype), consts)
     with _stage(timings, "validate", device):
-        validate_line_quants({
-            f"{key} (model {m0 + b})": triple
-            for b, lq in enumerate(quants) if lq for key, triple in lq.items()
-        })
-    return states, quants
+        validate_line_quants(quants)
+    return state, quants

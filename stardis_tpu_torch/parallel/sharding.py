@@ -46,7 +46,14 @@ import time
 import numpy as np
 import torch
 
-from ..pipeline import _stage, device_constants, host_array, prepare_lines, spectrum_batch
+from ..pipeline import (
+    _stage,
+    device_constants,
+    host_array,
+    model_axis,
+    prepare_lines,
+    spectrum_batch,
+)
 
 
 def segment_ranges(n_nu, n_segments):
@@ -386,7 +393,7 @@ def shard_tiles(plan, mesh, n_models, row_inputs, dtype, consts=None, ray_distan
 
     row_inputs(m0, m1, consts, timings) : stage 1 of models [m0, m1) on
         the device of ``consts`` (the plan's DeviceConstants there), as
-        (states, quants)
+        (state, quants) with the model axis
     consts : DeviceConstants to reuse on their own device; other devices
         upload the plan's
     The other arguments as ``shard_batch_spectrum``."""
@@ -418,16 +425,16 @@ def shard_tiles(plan, mesh, n_models, row_inputs, dtype, consts=None, ray_distan
             for _entry, (m0, m1), (a, b) in dev_tiles:
                 sigmas = None if file_sigmas is None else [s[m0:m1] for s in file_sigmas]
                 if (m0, m1) not in rows:
-                    states, quants = row_inputs(m0, m1, c, stage_t)
+                    state, quants = row_inputs(m0, m1, c, stage_t)
                     with _stage(stage_t, "line_opacity", device):
                         # in the accuracy window mode the epsilon comes from
                         # the whole grid, in the mesh's pixel ranges
-                        lines = prepare_lines(plan, states, quants, c, sigmas, plain, cols)
-                    rows[(m0, m1)] = (states, lines)
-                states, lines = rows[(m0, m1)]
+                        lines = prepare_lines(plan, state, quants, c, sigmas, plain, cols)
+                    rows[(m0, m1)] = (state, lines)
+                state, lines = rows[(m0, m1)]
                 wall = _Walls(device)
                 f, total, opac, i = spectrum_batch(
-                    plan, states, lines, c,
+                    plan, state, lines, c,
                     ray_distances=None if ray_distances is None else ray_distances[m0:m1],
                     photospheric_correction=(correction[m0:m1] if np.ndim(correction)
                                              else correction),
@@ -462,9 +469,10 @@ def shard_batch_spectrum(plan, states, quants, mesh, consts, ray_distances=None,
     entry (batch row, nu column) computes a contiguous chunk of the models
     over one pixel range, as ``pipeline.spectrum_batch`` on that range.
 
-    states, quants : stage 1 of each of the B models (``spectrum_batch``'s
-        lists) on the device of ``consts``; each row's are copied to the
-        devices of its entries (copies keep the bits)
+    states, quants : stage 1 of the B models on the device of ``consts``,
+        batched (``stage_plasma_and_lines`` of [B, D] temperatures) or one
+        per model (``pipeline.model_axis``); each row's models are copied to
+        the devices of its entries (copies keep the bits)
     consts : the plan's DeviceConstants there; the other devices upload
         the plan's own
     ray_distances : [B, G, T] host array (default the plan's for each model)
@@ -481,10 +489,13 @@ def shard_batch_spectrum(plan, states, quants, mesh, consts, ray_distances=None,
     tracks I_nu, on the first device of the mesh this process holds.
     """
     mesh = as_batch_nu(mesh)
+    state, quants = model_axis(states, quants)
     f_nu, i_nus = shard_tiles(
-        plan, mesh, len(states),
-        lambda m0, m1, c, _timings: tuple(zip(*(
-            _to_device(states[m], quants[m], c.tracing_nus.device) for m in range(m0, m1)))),
+        plan, mesh, state.t.shape[0],
+        lambda m0, m1, c, _timings: _to_device(
+            type(state)(*(x[m0:m1] for x in state)),
+            quants and {k: tuple(x[m0:m1] for x in triple) for k, triple in quants.items()},
+            c.tracing_nus.device),
         consts.tracing_nus.dtype, consts, ray_distances, photospheric_correction,
         file_sigmas, plain, timings, shard_walls)
     return (f_nu, i_nus) if plan.track_individual_intensities else f_nu

@@ -7,9 +7,13 @@ The port of ``stardis_tpu/pipeline.py``, single device:
    molecular lines, molecular tables, quadrature and geometry
    (plane-parallel or spherical).
 2. ``stage_plasma_and_lines`` — LTE solve + per-line alpha/gamma/Doppler
-   for the "atomic" and "molecular" line sets.
+   for the "atomic" and "molecular" line sets, for a batch of models in
+   one pass (its B models folded into B * D depth columns); on the card
+   ``CapturedStage1`` keeps it as a CUDA graph that batches and services
+   replay.
 3. ``validate_line_quants`` — one finiteness flag, one host sync.
-4. ``spectrum_batch`` — for a batch of models: continuum, line
+4. ``spectrum_batch`` — for a batch of models: continuum (one pass over
+   the B * D columns), line
    accumulation (Kernel 1, once per line set for the whole batch, in the
    reference or the accuracy window mode), blackbody source, formal
    solution (Kernel 2, once for the whole batch) -> F_nu.  A single run
@@ -30,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import threading
 import time
 from contextlib import contextmanager
 
@@ -49,14 +54,18 @@ from .opacities.line_kernel import (
 from .opacities.lines import (
     LineData,
     compute_line_quantities,
+    device_line_columns,
     prepare_line_data,
 )
-from .plasma.lte import DevicePlasmaTables, device_tables, solve_lte
+from .plasma.lte import DevicePlasmaTables, PlasmaState, device_tables, solve_lte
 from .plasma.molecules import (
+    DeviceMoleculeTables,
     MoleculeLineData,
     MoleculeTables,
     build_molecule_tables,
     compute_molecule_line_quantities,
+    device_molecule_lines,
+    device_molecule_tables,
     prepare_molecule_line_data,
 )
 from .plasma.tables import PlasmaTables, build_plasma_tables
@@ -369,12 +378,20 @@ def _tensor(x, like):
 class DeviceConstants:
     """The plan's request-independent device tensors, uploaded once
     (``device_constants``) and shared by every stage that reads them: a
-    run builds them once, ``serving.SpectralService`` once per service."""
+    run builds them once, ``serving.SpectralService`` once per service, a
+    captured stage 1 (``CapturedStage1``) holds its own.  Stage 1 reads
+    nothing else, so it uploads nothing."""
 
     tables: DevicePlasmaTables
     tracing_nus: torch.Tensor  # [N] Hz, descending
     grid: torch.Tensor  # [N] tracing_nus minus the middle frequency nu_ref
     lines: dict  # line-set key -> (line nu - nu_ref [L], center pixels [L])
+    # line-set key -> its per-line columns: "atomic" DeviceLineColumns,
+    # "molecular" DeviceMoleculeLines
+    line_columns: dict = dataclasses.field(default_factory=dict)
+    molecules: DeviceMoleculeTables | None = None
+    bf: tuple | None = None  # (level_flat [K] int64, cutoffs [K], coefficients [K])
+    ff: tuple | None = None  # (slots [M] int64, ion numbers [M])
 
 
 def device_constants(plan: SimulationPlan, dtype, device) -> DeviceConstants:
@@ -394,106 +411,269 @@ def device_constants(plan: SimulationPlan, dtype, device) -> DeviceConstants:
                               device=device).to(torch.int32))
         for key, ld in line_data.items() if ld is not None and ld.n_lines > 0
     }
+    line_columns = {}
+    if "atomic" in lines:
+        line_columns["atomic"] = device_line_columns(plan.line_data, dtype, device)
+    if "molecular" in lines:
+        line_columns["molecular"] = device_molecule_lines(plan.molecule_line_data, dtype,
+                                                          device)
+    molecules = None
+    if plan.molecule_tables is not None:
+        molecules = device_molecule_tables(plan.molecule_tables,
+                                           len(plan.tables.slot_element), dtype, device)
+    bf = ff = None
+    if plan.bf is not None and len(plan.bf.level_flat):
+        bf = (torch.as_tensor(plan.bf.level_flat, device=device),
+              _tensor(plan.bf.cutoff_frequencies, like), _tensor(plan.bf.coefficients, like))
+    if len(plan.ff_slots):
+        ff = (torch.as_tensor(plan.ff_slots, device=device), _tensor(plan.ff_ion_numbers, like))
     return DeviceConstants(
         tables=device_tables(plan.tables, dtype=dtype, device=device),
         tracing_nus=_tensor(plan.tracing_nus, like),
         grid=_tensor(plan.tracing_nus - nu_ref, like),
         lines=lines,
+        line_columns=line_columns,
+        molecules=molecules,
+        bf=bf,
+        ff=ff,
     )
 
 
-def stage_plasma_and_lines(plan: SimulationPlan, temps, n_elem, consts):
-    """LTE solve + per-line quantities on the device of ``temps``.
+#: stage 1's depth columns are padded to a multiple of this: the widest
+#: vectorised loop of the CPU (4 accumulators of 16 float32 lanes)
+COLUMN_BLOCK = 64
 
-    consts : the plan's DeviceConstants (``device_constants``; its plasma
-        tables)
-    Returns (state, quants): quants maps "atomic" / "molecular" to the
-    (alpha, gamma, doppler) triple of that line set, or is None when no
-    lines are configured.
+
+def _split_models(x, n_models):
+    """[..., B * D] columns -> [B, ..., D], a view."""
+    return x.unflatten(-1, (n_models, -1)).movedim(-2, 0)
+
+
+def stage_plasma_and_lines(plan: SimulationPlan, temps, n_elem, consts):
+    """LTE solve + per-line quantities on the device of ``temps``, for a
+    batch of models in one pass (the port of ``jax.vmap`` of the JAX
+    package's stage 1).
+
+    temps : [B, D] K, or [D] for one model
+    n_elem : [B, E, D] (or [E, D]) elemental number densities
+    consts : the plan's DeviceConstants (``device_constants``): the plasma
+        tables and each line set's per-line columns, so the stage uploads
+        nothing and syncs nothing with the host (a CUDA graph can capture
+        it: ``CapturedStage1``)
+    Returns (state, quants): the PlasmaState with the leading model axis
+    [B, ...] (none for one model), and quants mapping "atomic" /
+    "molecular" to the (alpha, gamma, doppler) triple of that line set,
+    each [B, L, D] (or [L, D]), or None when no lines are configured.
+
+    The B models are folded into B * D depth columns, since every step is
+    per column and the tables are shared: the stage launches the same
+    operations for any B, and its outputs are views of [.., B * D]
+    planes.  The columns are padded to a multiple of COLUMN_BLOCK, so
+    that every one of them takes the same path through the CPU's
+    vectorised loops (which round a tail of columns otherwise, in another
+    order), and a model's results have the same bits in any batch.  A batch with molecules raises: the plan's molecular tables
+    hold its own model's K(T) and U(T) (ROADMAP.md Queue 3).
     """
-    state = solve_lte(temps, n_elem, consts.tables)
+    single = temps.ndim == 1
+    if single:
+        temps, n_elem = temps[None], n_elem[None]
+    n_models = temps.shape[0]
+    if n_models > 1 and plan.molecule_tables is not None:
+        raise not_ported(
+            "stage 1 of a batch with molecules (per-model molecular tables)",
+            "the JAX batch evaluates molecules at the template's temperatures",
+            queue=3,
+        )
+    # model-major columns: column b * D + d is depth d of model b, padded
+    # with copies of the last one to a multiple of COLUMN_BLOCK
+    t = temps.reshape(-1)
+    n_cols = t.shape[0]
+    cols = torch.arange(-(-n_cols // COLUMN_BLOCK) * COLUMN_BLOCK,
+                        device=t.device).clamp_(max=n_cols - 1)
+    t = t[cols]
+    n_elem = n_elem.transpose(0, 1).clone(memory_format=torch.contiguous_format)
+    state = solve_lte(t, n_elem.view(n_elem.shape[0], -1)[:, cols], consts.tables)
     quants = {}
-    if plan.line_data is not None and plan.line_data.n_lines > 0:
+    if "atomic" in consts.line_columns:
         quants["atomic"] = compute_line_quantities(
-            plan.line_data,
+            consts.line_columns["atomic"],
             state,
-            temps,
+            t,
             plan.microturbulence_cgs,
             plan.broadening_flags,
             use_vald_broadening=plan.use_vald_broadening,
         )
-    mld = plan.molecule_line_data
-    if mld is not None and mld.n_lines > 0:
+    if "molecular" in consts.line_columns:
+        molecules = consts.molecules  # [M, D] tables of the plan's one model
         quants["molecular"] = compute_molecule_line_quantities(
-            mld,
-            plan.molecule_tables,
+            consts.line_columns["molecular"],
+            molecules._replace(k=molecules.k[:, cols], u_mol=molecules.u_mol[:, cols]),
             state,
-            temps,
+            t,
             plan.microturbulence_cgs,
             plan.broadening_flags,
             coupled=plan.molecules_coupled,
         )
+    state = PlasmaState(*(_split_models(x[..., :n_cols], n_models) for x in state))
+    quants = {key: tuple(_split_models(x[..., :n_cols], n_models) for x in triple)
+              for key, triple in quants.items()}
+    if single:
+        state = PlasmaState(*(x[0] for x in state))
+        quants = {key: tuple(x[0] for x in triple) for key, triple in quants.items()}
     return state, (quants or None)
 
 
+#: warm-up calls of stage 1 on a side stream before a capture, as
+#: PyTorch's CUDA-graph documentation asks
+CAPTURE_WARMUP = 3
+
+
+class CapturedStage1:
+    """``stage_plasma_and_lines`` of ``n_models`` models (None: one model,
+    1-D inputs) captured once in a CUDA graph and replayed: the port of the
+    JAX package's compiled stage 1 kept across calls (``jax.jit`` of its
+    vmapped stage in ``parallel.batch.run_batch``, of its stage in each
+    ``SpectralService``).
+
+    The graph reads the plan's DeviceConstants (``consts``, held here with
+    the plan) and two static input buffers; its outputs are fixed tensors
+    of its private memory pool (``pool_bytes``), overwritten by each
+    replay.  ``replay`` copies the inputs in and yields the outputs under
+    the graph's own lock, so the caller consumes them (validates them,
+    prepares Kernel 1's inputs, runs the spectrum) before another thread
+    can replay.  A failed capture or replay raises; nothing falls back to
+    the eager stage.  CUDA only, and without autograd: a differentiated
+    run calls ``stage_plasma_and_lines`` itself."""
+
+    def __init__(self, plan: SimulationPlan, consts: DeviceConstants, n_models=None):
+        device = consts.tracing_nus.device
+        if device.type != "cuda":
+            raise ValueError(f"a captured stage 1 needs a CUDA device, not {device}")
+        self.plan, self.consts, self.n_models = plan, consts, n_models
+        dtype = consts.tracing_nus.dtype
+        lead = () if n_models is None else (n_models,)
+        # static inputs, allocated before the capture; the warm-up runs on
+        # the plan's own model
+        self._temps = torch.empty(lead + plan.temperatures.shape, dtype=dtype, device=device)
+        self._n_elem = torch.empty(lead + plan.n_elem.shape, dtype=dtype, device=device)
+        self._temps.copy_(torch.as_tensor(plan.temperatures))
+        self._n_elem.copy_(torch.as_tensor(plan.n_elem))
+        self._lock = threading.Lock()
+        with torch.no_grad(), torch.cuda.device(device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(CAPTURE_WARMUP):
+                    stage_plasma_and_lines(plan, self._temps, self._n_elem, consts)
+            torch.cuda.current_stream().wait_stream(side)
+            self._graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self._graph, capture_error_mode="thread_local"):
+                self._out = stage_plasma_and_lines(plan, self._temps, self._n_elem, consts)
+            torch.cuda.synchronize()
+        pool = self._graph.pool()
+        self.pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                              if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+    @contextmanager
+    def replay(self, temps, n_elem, timings=None):
+        """Replay on ``temps`` ([B, D], or [D]) and ``n_elem`` (host arrays
+        or tensors, copied into the static buffers); yields (state, quants)
+        as ``stage_plasma_and_lines`` returns them, valid inside the block
+        only.  ``timings`` receives the wall time of the copies and the
+        replay as "plasma_and_lines"."""
+        with self._lock:
+            with _stage(timings, "plasma_and_lines", self._temps.device), torch.no_grad():
+                self._temps.copy_(torch.as_tensor(temps))
+                self._n_elem.copy_(torch.as_tensor(n_elem))
+                self._graph.replay()
+            yield self._out
+
+
+def model_axis(states, line_quants=None):
+    """(state, quants) with the leading model axis: a batched stage-1
+    result as it is, a single model's (1-D temperatures) with an axis of
+    one, a list of per-model results stacked."""
+    if isinstance(states, PlasmaState):
+        state = states if states.t.ndim == 2 else PlasmaState(*(x[None] for x in states))
+    else:
+        state = PlasmaState(*(_stack(fields) for fields in zip(*states)))
+    if isinstance(line_quants, (list, tuple)):
+        quants = line_quants[0] and {
+            key: tuple(_stack([q[key][i] for q in line_quants]) for i in range(3))
+            for key in line_quants[0]
+        }
+    else:
+        quants = line_quants and {
+            key: tuple(x if x.ndim == 3 else x[None] for x in triple)
+            for key, triple in line_quants.items()
+        }
+    return state, (quants or None)
+
+
+def column_state(state):
+    """A batched PlasmaState [B, ...] as B * D depth columns [..., B * D]:
+    a view for ``stage_plasma_and_lines``' own output."""
+    return PlasmaState(*(x.movedim(0, -2).flatten(-2) for x in state))
+
+
 def validate_line_quants(line_quants):
-    """NaN/inf line quantities abort the run: one reduction, one host sync."""
+    """NaN/inf line quantities abort the run: one reduction, one host sync.
+    [B, L, D] arrays name the models at fault."""
     if not line_quants:
         return
-    arrays = [arr for triple in line_quants.values() for arr in triple]
-    flags = torch.stack([torch.isfinite(arr).all() for arr in arrays]).cpu()
-    if not bool(flags.all()):
-        names = list(line_quants.keys())
-        bad = flags.reshape(len(names), 3)
-        detail = ", ".join(
-            f"{names[i]}:{'alpha gamma doppler'.split()[j]}"
-            for i in range(bad.shape[0])
-            for j in range(3)
-            if not bad[i, j]
-        )
+    names, flags = [], []
+    for key, triple in line_quants.items():
+        for field, arr in zip(("alpha", "gamma", "doppler"), triple):
+            ok = torch.isfinite(arr)
+            flags.append(ok.flatten(1).all(dim=1) if arr.ndim == 3 else ok.all()[None])
+            names.append((key, field, arr.ndim == 3))
+    flags = torch.stack(flags).cpu()  # [sets x 3, B]
+    bad = [
+        f"{key}{f' (model {b})' if batched else ''}:{field}"
+        for (key, field, batched), ok in zip(names, flags)
+        for b in np.flatnonzero(~ok.numpy())
+    ]
+    if bad:
         raise ValueError(
-            f"Some line quantities ({detail}) are nan, inf, -inf. "
+            f"Some line quantities ({', '.join(bad)}) are nan, inf, -inf. "
             "Something went wrong!"
         )
 
 
-def compute_continuum(plan: SimulationPlan, state, tracing_nus, file_sigmas=None,
+def compute_continuum(plan: SimulationPlan, state, tracing_nus, consts, file_sigmas=None,
                       pixels=slice(None)):
-    """All continuum sources -> dict of [D, n] tensors over ``tracing_nus``.
+    """All continuum sources -> dict of [D, n] tensors over ``tracing_nus``,
+    per depth column: a batch passes its B * D columns (``column_state``).
 
     file_sigmas: optional [D, N] host arrays, one per plan.file_sources
     entry, replacing the plan's (a batch member's own temperatures).
     pixels: the columns of the global grid that ``tracing_nus`` holds; the
-    file sigmas are cut to them."""
+    file sigmas are cut to them.
+    consts: the plan's DeviceConstants (its bf and ff columns)."""
     n_nu = tracing_nus.shape[0]
     t = state.t
     out = {}
     for i, (name, sig, dplan) in enumerate(plan.file_sources):
         density = cont.species_density(dplan, state, plan.tables)
         sig = sig if file_sigmas is None else file_sigmas[i]
-        out[f"alpha_file_{name}"] = cont.calc_alpha_file(_tensor(sig[:, pixels], t), density)
+        sig = _tensor(np.asarray(sig)[:, pixels], t)
+        if sig.shape[0] != t.shape[0]:  # the plan's [D, n] for each of B models
+            sig = sig.repeat(t.shape[0] // sig.shape[0], 1)
+        out[f"alpha_file_{name}"] = cont.calc_alpha_file(sig, density)
 
-    if plan.bf is not None and len(plan.bf.level_flat):
-        level_densities = state.level_number_density[
-            torch.as_tensor(plan.bf.level_flat, device=t.device)
-        ]
+    if consts.bf is not None:
+        level_flat, cutoffs, coefficients = consts.bf
         # the bf (D,K)x(K,N) product runs in full float32 on the card,
         # its backward too (util.matmul)
         out["alpha_bf"] = cont.calc_alpha_bf_hydrogenic(
-            tracing_nus,
-            level_densities,
-            _tensor(plan.bf.cutoff_frequencies, t),
-            _tensor(plan.bf.coefficients, t),
-        )
+            tracing_nus, state.level_number_density[level_flat], cutoffs, coefficients)
 
-    if len(plan.ff_slots):
-        ion_densities = state.ion_number_density[
-            torch.as_tensor(plan.ff_slots, device=t.device)
-        ]
+    if consts.ff is not None:
+        slots, ion_numbers = consts.ff
         out["alpha_ff"] = cont.calc_alpha_ff_hydrogenic(
             tracing_nus,
-            ion_densities,
-            _tensor(plan.ff_ion_numbers, t),
+            state.ion_number_density[slots],
+            ion_numbers,
             state.electron_densities,
             t,
         )
@@ -520,19 +700,20 @@ def _stack(tensors):
     return tensors[0][None] if len(tensors) == 1 else torch.stack(tensors)
 
 
-def continuum_batch(plan: SimulationPlan, states, tracing_nus, file_sigmas=None,
+def continuum_batch(plan: SimulationPlan, states, tracing_nus, consts, file_sigmas=None,
                     pixels=slice(None)):
     """Every continuum source of each model over ``tracing_nus`` (the
-    columns ``pixels`` of the global grid): dict of [B, D, n] tensors.
-    file_sigmas: per plan.file_sources entry, a [B, D, N] host array."""
-    continua = [
-        compute_continuum(plan, state, tracing_nus,
-                          None if file_sigmas is None else [sig[b] for sig in file_sigmas],
-                          pixels)
-        for b, state in enumerate(states)
-    ]
-    # pop as it stacks, so each source is held once, not per model and stacked
-    return {key: _stack([c.pop(key) for c in continua]) for key in list(continua[0])}
+    columns ``pixels`` of the global grid), in one pass over the batch's
+    B * D depth columns: dict of [B, D, n] tensors.
+    states: a batched stage-1 state, or one per model (``model_axis``)
+    consts: the plan's DeviceConstants
+    file_sigmas: per plan.file_sources entry, a [B, D, N] host array"""
+    state, _ = model_axis(states)
+    n_models, n_depth = state.t.shape
+    sigmas = None if file_sigmas is None else [
+        np.asarray(sig).reshape(n_models * n_depth, -1) for sig in file_sigmas]
+    out = compute_continuum(plan, column_state(state), tracing_nus, consts, sigmas, pixels)
+    return {key: val.view(n_models, n_depth, -1) for key, val in out.items()}
 
 
 def accuracy_epsilon(plan, states, consts, file_sigmas=None, ranges=None):
@@ -550,7 +731,7 @@ def accuracy_epsilon(plan, states, consts, file_sigmas=None, ranges=None):
     epsilon = None
     for a, b in ranges or [(0, consts.grid.shape[0])]:
         total = None
-        for val in continuum_batch(plan, states, consts.tracing_nus[a:b], file_sigmas,
+        for val in continuum_batch(plan, states, consts.tracing_nus[a:b], consts, file_sigmas,
                                    slice(a, b)).values():
             total = val if total is None else total + val
         part = plan.window_epsilon * torch.amin(total, dim=-1)
@@ -570,21 +751,21 @@ def prepare_lines(plan: SimulationPlan, states, line_quants, consts, file_sigmas
     and read the global centres, so a window edge falls on the same pixel
     whatever range evaluates it.
 
-    states, line_quants : one stage-1 result per model
+    states, line_quants : the batch's stage 1 (``stage_plasma_and_lines``
+        of [B, D] temperatures), or one result per model (``model_axis``)
     file_sigmas, ranges : as ``accuracy_epsilon``, which the accuracy
         window mode reads
     plain : prepare for the plain torch version on any device
     """
+    state, quants = model_axis(states, line_quants)
     out = []
     n_nu = consts.grid.shape[0]
-    epsilon = (accuracy_epsilon(plan, states, consts, file_sigmas, ranges)
+    epsilon = (accuracy_epsilon(plan, state, consts, file_sigmas, ranges)
                if plan.window_mode == "accuracy" else None)
     for key, label in LINE_SETS:
-        if not line_quants[0] or key not in line_quants[0]:
+        if not quants or key not in quants:
             continue
-        alpha, gamma, doppler = (
-            _stack([q[key][i] for q in line_quants]) for i in range(3)
-        )  # [B, L, D]
+        alpha, gamma, doppler = quants[key]  # [B, L, D]
         line_nu, centers = consts.lines[key]
         iw = window_half_widths(alpha, gamma, doppler, plan.d_nu, n_nu,
                                 plan.window_mode, epsilon)
@@ -600,7 +781,7 @@ def spectrum_batch(plan: SimulationPlan, states, lines, consts, ray_distances=No
     """Opacities + formal solution for a batch of models that share the
     plan's grid, lines and configuration.
 
-    states : one stage-1 state per model
+    states : the batch's stage-1 state (or one per model: ``model_axis``)
     lines : ``prepare_lines``' result for these models (shared by the
         ranges of a segmented run)
     consts : the plan's DeviceConstants (``device_constants``)
@@ -615,12 +796,14 @@ def spectrum_batch(plan: SimulationPlan, states, lines, consts, ray_distances=No
     returns F_nu [B, D, n], total [B, D, n], opacities (each [B, ...]),
         I_nus [B, D, n, T] or None, over the n pixels of the range
     """
-    t0 = states[0].t
-    n_models = len(states)
+    state, _ = model_axis(states)
+    t0 = state.t
+    n_models = t0.shape[0]
     a, b = (0, consts.grid.shape[0]) if pixels is None else pixels
     tracing_nus = consts.tracing_nus[a:b]
     with _stage(timings, "continuum", t0.device):
-        opacities = continuum_batch(plan, states, tracing_nus, file_sigmas, slice(a, b))
+        opacities = continuum_batch(plan, state, tracing_nus, consts, file_sigmas,
+                                    slice(a, b))
 
     with _stage(timings, "line_opacity", t0.device):
         for label, prepared, gamma, doppler in lines:
@@ -634,7 +817,7 @@ def spectrum_batch(plan: SimulationPlan, states, lines, consts, ray_distances=No
             if "gammas" in key or "doppler" in key:
                 continue
             total = val if total is None else total + val
-        source = _stack([blackbody_flux_at_nu(tracing_nus, s.t) for s in states])
+        source = blackbody_flux_at_nu(tracing_nus, t0[..., None])  # [B, D, n]
         if ray_distances is None:
             ray_distances = np.repeat(plan.ray_distances[None], n_models, axis=0)
         trace = raytrace_plain if plain else raytrace

@@ -60,6 +60,8 @@ class DevicePlasmaTables(NamedTuple):
     slot_levels: torch.Tensor  # [S, M] int64 levels of each slot, padded with L
     h_slots: tuple  # (slot of H I, slot of H II); (0, 0) when H absent
     has_hydrogen: bool
+    h2_plus_temps: torch.Tensor  # [8] K, the Stancil H2+ sample temperatures
+    h2_plus_k: torch.Tensor  # [8] its equilibrium constants
 
 
 def device_tables(tables: PlasmaTables, dtype=torch.float64,
@@ -104,6 +106,8 @@ def device_tables(tables: PlasmaTables, dtype=torch.float64,
         slot_levels=index(slot_levels),
         h_slots=h_slots,
         has_hydrogen=bool(has_h),
+        h2_plus_temps=real(H2_PLUS_K_SAMPLE_TEMPS),
+        h2_plus_k=real(H2_PLUS_K_EQUILIBRIUM_CONSTANT),
     )
 
 
@@ -176,7 +180,11 @@ def _interp(x, xp, fp):
 
 
 def solve_lte(temperatures, elemental_number_density, dt: DevicePlasmaTables):
-    """LTE solve, vectorized over depth.
+    """LTE solve, vectorized over depth columns: every step is per column,
+    so a batch of B models of D depths is B * D columns
+    (``pipeline.stage_plasma_and_lines`` folds the model axis in).  It
+    reads only device tensors, uploads nothing, and syncs nothing with the
+    host, so a CUDA graph can capture it.
 
     Parameters
     ----------
@@ -259,11 +267,7 @@ def solve_lte(temperatures, elemental_number_density, dt: DevicePlasmaTables):
         H2_DISSOCIATION_ENERGY_EV * EV_TO_ERG * beta
     )
 
-    k_h2p = _interp(
-        t,
-        torch.as_tensor(H2_PLUS_K_SAMPLE_TEMPS, device=t.device).to(t.dtype),
-        torch.as_tensor(H2_PLUS_K_EQUILIBRIUM_CONSTANT, device=t.device).to(t.dtype),
-    )
+    k_h2p = _interp(t, dt.h2_plus_temps, dt.h2_plus_k)
     h2_plus = n_h_neutral * n_h_plus / k_h2p * 1e-19
 
     return PlasmaState(

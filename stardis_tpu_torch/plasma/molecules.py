@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import re
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -138,16 +139,50 @@ def build_molecule_tables(atom_data, tables, temperatures) -> MoleculeTables:
     )
 
 
-def _tables_on(mt: MoleculeTables, like):
-    """(i1, i2, k, homo [M, 1], included [M, 1]) on ``like``'s device."""
-    dev = like.device
-    return (
-        torch.as_tensor(mt.ion1_slot, device=dev),
-        torch.as_tensor(mt.ion2_slot, device=dev),
-        torch.as_tensor(mt.k_density, device=dev).to(like.dtype),
-        torch.as_tensor(mt.homonuclear, device=dev)[:, None],
-        torch.as_tensor(mt.included, device=dev)[:, None],
+class DeviceMoleculeTables(NamedTuple):
+    """A MoleculeTables' arrays on one device, uploaded once per plan
+    (``device_molecule_tables``, kept in ``pipeline.DeviceConstants``)."""
+
+    i1: torch.Tensor  # [M] int64 constituent slots
+    i2: torch.Tensor  # [M] int64
+    k: torch.Tensor  # [M, D] number-density equilibrium constants
+    homo: torch.Tensor  # [M, 1] bool
+    included: torch.Tensor  # [M, 1] bool
+    inc1: torch.Tensor  # [S, M] 0/1 incidence of i1 (``_incidence``)
+    inc2: torch.Tensor  # [S, M] 0/1 incidence of i2
+    u_mol: torch.Tensor  # [M, D] molecular partition functions
+
+
+def _incidence(slots, n_slots, dtype, device):
+    """[S, M] 0/1 matrix: column m has its 1 in row slots[m]."""
+    inc = np.zeros((n_slots, len(slots)))
+    inc[np.asarray(slots), np.arange(len(slots))] = 1.0
+    return torch.as_tensor(inc, device=device).to(dtype)
+
+
+def device_molecule_tables(mt: MoleculeTables, n_slots, dtype, device) -> DeviceMoleculeTables:
+    """Upload ``mt`` for a plasma of ``n_slots`` ion slots."""
+    def real(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float64), device=device).to(dtype)
+
+    return DeviceMoleculeTables(
+        i1=torch.as_tensor(mt.ion1_slot, device=device),
+        i2=torch.as_tensor(mt.ion2_slot, device=device),
+        k=real(mt.k_density),
+        homo=torch.as_tensor(mt.homonuclear, device=device)[:, None],
+        included=torch.as_tensor(mt.included, device=device)[:, None],
+        inc1=_incidence(mt.ion1_slot, n_slots, dtype, device),
+        inc2=_incidence(mt.ion2_slot, n_slots, dtype, device),
+        u_mol=real(mt.partition_function),
     )
+
+
+def _tables_on(mt, like):
+    """``mt`` as DeviceMoleculeTables on ``like``'s ([S, D] ion densities)
+    dtype and device: as it is when it already is, else uploaded."""
+    if isinstance(mt, DeviceMoleculeTables):
+        return mt
+    return device_molecule_tables(mt, like.shape[0], like.dtype, like.device)
 
 
 def molecule_number_density(mt: MoleculeTables, state):
@@ -161,7 +196,7 @@ def molecule_number_density(mt: MoleculeTables, state):
     by s = k + (constituent sum), because k (k + 8N) and k^2 overflow
     float32 (k reaches ~1e22 at 10^4 K) while every scaled term is O(1).
     """
-    i1, i2, k, homo, included = _tables_on(mt, state.ion_number_density)
+    i1, i2, k, homo, included, *_ = _tables_on(mt, state.ion_number_density)
     n1 = state.ion_number_density[i1]  # [M, D]
     n2 = state.ion_number_density[i2]
 
@@ -178,13 +213,6 @@ def molecule_number_density(mt: MoleculeTables, state):
     n_mol = torch.where(homo, n_homo, n_hetero)
     n_mol = torch.clamp(n_mol, min=0.0)
     return torch.where(included, n_mol, torch.zeros_like(n_mol))
-
-
-def _incidence(slots, n_slots, like):
-    """[S, M] 0/1 matrix: column m has its 1 in row slots[m]."""
-    inc = np.zeros((n_slots, len(slots)))
-    inc[np.asarray(slots), np.arange(len(slots))] = 1.0
-    return torch.as_tensor(inc, device=like.device).to(like.dtype)
 
 
 def _slot_sum(incidence, per_molecule):
@@ -210,10 +238,7 @@ def molecule_number_density_coupled(mt: MoleculeTables, state, n_iter: int = 400
     incidence matrices [S, M].
     """
     n_res = state.ion_number_density  # [S, D] undepleted reservoirs
-    i1, i2, k, homo, included = _tables_on(mt, n_res)
-    n_slots = n_res.shape[0]
-    inc1 = _incidence(mt.ion1_slot, n_slots, n_res)
-    inc2 = _incidence(mt.ion2_slot, n_slots, n_res)
+    i1, i2, k, homo, included, inc1, inc2, _u = _tables_on(mt, n_res)
     zero = torch.zeros_like(k)
     homo_inv_k = torch.where(included & homo, 1.0 / k, zero)
     alpha = _slot_sum(inc1, homo_inv_k)  # fixed over the iterations
@@ -247,18 +272,13 @@ def coupled_network_residual(mt: MoleculeTables, state, x, n_m):
     molecule_number_density_coupled(return_aux=True)); ~1e-11 where the
     400-iteration sweep has converged."""
     n_res = state.ion_number_density
-    _i1, _i2, _k, homo, included = _tables_on(mt, n_res)
-    n_slots = n_res.shape[0]
-    inc1 = _incidence(mt.ion1_slot, n_slots, n_res)
-    inc2 = _incidence(mt.ion2_slot, n_slots, n_res)
+    _i1, _i2, _k, homo, included, inc1, inc2, _u = _tables_on(mt, n_res)
     nu_m = torch.where(included, n_m.to(n_res.dtype), torch.zeros_like(n_m))
     consumed = _slot_sum(inc1, torch.where(homo, 2.0 * nu_m, nu_m)) + _slot_sum(
         inc2, torch.where(homo, torch.zeros_like(nu_m), nu_m)
     )
-    live = mt.included.astype(float)
-    participates = torch.as_tensor(
-        (inc1.cpu().numpy() @ live + inc2.cpu().numpy() @ live) > 0, device=n_res.device
-    )
+    live = included[:, 0].to(n_res.dtype)
+    participates = (inc1 @ live + inc2 @ live) > 0
     resid = torch.abs(n_res - x.to(n_res.dtype) * n_res - consumed)
     resid = resid / torch.clamp(n_res, min=1e-300)
     return torch.max(torch.where(participates[:, None], resid, torch.zeros_like(resid)))
@@ -362,10 +382,38 @@ def prepare_molecule_line_data(atom_data, mt: MoleculeTables, nu_min,
     )
 
 
-def compute_molecule_line_quantities(mld: MoleculeLineData, mt: MoleculeTables,
-                                     state, temperatures, microturbulence_cgs,
+class DeviceMoleculeLines(NamedTuple):
+    """A MoleculeLineData's columns as [L, 1] tensors (the molecule index
+    [L], int64), uploaded once per plan (``device_molecule_lines``)."""
+
+    molecule_index: torch.Tensor
+    nu: torch.Tensor
+    gf: torch.Tensor
+    e_low_erg: torch.Tensor
+    A_ul: torch.Tensor
+    stark: torch.Tensor
+    waals: torch.Tensor
+    mass: torch.Tensor
+
+
+def device_molecule_lines(mld: MoleculeLineData, dtype, device) -> DeviceMoleculeLines:
+    def col(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float64), device=device).to(dtype)[:, None]
+
+    return DeviceMoleculeLines(
+        molecule_index=torch.as_tensor(mld.molecule_index, device=device),
+        nu=col(mld.nu), gf=col(mld.gf), e_low_erg=col(mld.e_low_erg), A_ul=col(mld.A_ul),
+        stark=col(mld.stark), waals=col(mld.waals), mass=col(mld.mass),
+    )
+
+
+def compute_molecule_line_quantities(mld, mt, state, temperatures, microturbulence_cgs,
                                      broadening_flags, coupled: bool = False):
     """(alpha, gamma, doppler) [L, D] for molecular lines.
+
+    mld, mt : MoleculeLineData and MoleculeTables, or their device forms
+        (``device_molecule_lines``, ``device_molecule_tables``; stage 1
+        passes the plan's, so that it uploads nothing)
 
     alpha = C gf (n_mol / U_mol) e^{-beta E_low} (1 - e^{-h nu / k T});
     gamma from the VALD columns: A_ul, the VALD Stark law, and van der
@@ -376,34 +424,31 @@ def compute_molecule_line_quantities(mld: MoleculeLineData, mt: MoleculeTables,
     from ..opacities.broadening import calc_doppler_width, calc_vald_stark_gamma
 
     t = temperatures
-    dev, dtype = t.device, t.dtype
-
-    def col(x):
-        return torch.as_tensor(np.asarray(x, dtype=np.float64), device=dev).to(dtype)[:, None]
+    if not isinstance(mld, DeviceMoleculeLines):
+        mld = device_molecule_lines(mld, t.dtype, t.device)
+    mt = _tables_on(mt, state.ion_number_density)
 
     density_fn = molecule_number_density_coupled if coupled else molecule_number_density
     n_mol = density_fn(mt, state)  # [M, D]
-    u_mol = torch.as_tensor(mt.partition_function, device=dev).to(dtype)
-    n_over_u = n_mol / u_mol
+    n_over_u = n_mol / mt.u_mol
 
-    idx = torch.as_tensor(mld.molecule_index, device=dev)
-    nu = col(mld.nu)
-    boltz = torch.exp(-col(mld.e_low_erg) * state.beta[None, :])
+    nu = mld.nu
+    boltz = torch.exp(-mld.e_low_erg * state.beta[None, :])
     stim = 1.0 - torch.exp(-H_CGS * nu / (K_B_CGS * t[None, :]))
-    alpha = ALPHA_COEFFICIENT * col(mld.gf) * n_over_u[idx] * boltz * stim
+    alpha = ALPHA_COEFFICIENT * mld.gf * n_over_u[mld.molecule_index] * boltz * stim
 
     gamma = torch.zeros_like(alpha)
     if "radiation" in broadening_flags:
-        gamma = gamma + col(mld.A_ul)
+        gamma = gamma + mld.A_ul
     if "linear_stark" in broadening_flags or "quadratic_stark" in broadening_flags:
         gamma = gamma + calc_vald_stark_gamma(
-            state.electron_densities[None, :], col(mld.stark), t[None, :]
+            state.electron_densities[None, :], mld.stark, t[None, :]
         )
     if "van_der_waals" in broadening_flags:
-        vdw = col(mld.waals)
+        vdw = mld.waals
         h1 = state.h_neutral_density
         scaled = 10.0**vdw * (t[None, :] / 1e4) ** 0.38 * h1[None, :]
         gamma = gamma + torch.where(vdw < 0, scaled, torch.zeros_like(scaled))
 
-    doppler = calc_doppler_width(nu, t[None, :], col(mld.mass), microturbulence_cgs)
+    doppler = calc_doppler_width(nu, t[None, :], mld.mass, microturbulence_cgs)
     return alpha, gamma, doppler

@@ -25,7 +25,11 @@ and the depth count:
   (r_outer / r_ref)^2 in place of the plan model's;
 * ``I_nus`` is returned when the config tracks it
   (``result_options.return_radiation_field``);
-* ``synthesize_batch`` goes through ``parallel.batch.run_batch``;
+* on the card, stage 1 is captured once per service in a CUDA graph
+  (``pipeline.CapturedStage1``, the port of the JAX service's jitted
+  stage 1) and each request replays it; with ``mesh=`` it runs eagerly;
+* ``synthesize_batch`` goes through ``parallel.batch.run_batch`` (whose
+  captured stage 1 is cached per plan and batch size);
 * ``nu_segments`` K or ``"auto"`` serves through the serial wavelength
   segments of ``parallel.sharding.segmented_spectrum``.
 
@@ -47,6 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -55,6 +60,7 @@ from . import units as u
 from .base import check_segments, parse_config_to_model, resolve_segments
 from .pipeline import (
     C_AA_PER_S,
+    CapturedStage1,
     build_simulation_plan,
     device_constants,
     elemental_densities,
@@ -114,12 +120,15 @@ class SpectralService:
         self._thetas, _ = gauss_legendre_thetas(int(self.config.no_of_thetas))
         self._plan = None
         self._consts = None
+        self._stage1 = None
         self._batch_plan = None
 
     def _build(self, stellar_model):
         self._plan = build_simulation_plan(self.config, self.atom_data, stellar_model,
                                            self._nus)
         self._consts = device_constants(self._plan, self._dtype, self._device)
+        if self._device.type == "cuda" and self._mesh is None:
+            self._stage1 = CapturedStage1(self._plan, self._consts)
         self._nu_segments = resolve_segments(self._nu_segments, self._plan, self._dtype,
                                              self._device)
         if self._nu_segments > 1:
@@ -185,27 +194,17 @@ class SpectralService:
         sigmas = self._file_sigmas_for(temps_np)
         rays, _inward, correction = model_geometry(stellar_model, self._thetas)
 
-        temps = torch.as_tensor(temps_np, device=self._device).to(self._dtype)
-        n_elem = torch.as_tensor(elemental_densities(stellar_model, plan.tables),
-                                 device=self._device).to(self._dtype)
-        state, lq = stage_plasma_and_lines(plan, temps, n_elem, consts)
-        validate_line_quants(lq)
-        if self._mesh is not None:
-            from .parallel.sharding import shard_spectrum
-
-            out = shard_spectrum(plan, state, lq, self._mesh, consts, ray_distances=rays,
-                                 file_sigma_override=sigmas)
-            f_nu, i_nus = out if plan.track_individual_intensities else (out, None)
-        elif self._nu_segments > 1:
-            from .parallel.sharding import segmented_spectrum
-
-            out = segmented_spectrum(plan, state, lq, self._nu_segments, consts,
-                                     ray_distances=rays, file_sigma_override=sigmas)
-            f_nu, i_nus = out if plan.track_individual_intensities else (out, None)
+        n_elem_np = elemental_densities(stellar_model, plan.tables)
+        if self._stage1 is not None:
+            stage1 = self._stage1.replay(temps_np, n_elem_np)
         else:
-            f_nu, _total, _opac, i_nus = stage_spectrum(
-                plan, state, lq, consts, ray_distances=rays, file_sigmas=sigmas
-            )
+            stage1 = nullcontext(stage_plasma_and_lines(
+                plan, torch.as_tensor(temps_np, device=self._device).to(self._dtype),
+                torch.as_tensor(n_elem_np, device=self._device).to(self._dtype), consts))
+        # a replayed graph's outputs are valid inside the block only
+        with stage1 as (state, lq):
+            validate_line_quants(lq)
+            f_nu, i_nus = self._spectrum(plan, consts, state, lq, rays, sigmas)
         f_nu = f_nu.cpu().numpy()
         if correction is not None and plan.photospheric_correction:
             # the spectrum carries the plan model's (r_outer / r_ref)^2; swap
@@ -225,6 +224,25 @@ class SpectralService:
         if plan.track_individual_intensities:
             out["I_nus"] = i_nus.cpu().numpy()
         return out
+
+    def _spectrum(self, plan, consts, state, lq, rays, sigmas):
+        """(F_nu, I_nus or None) of one request's stage 1."""
+        if self._mesh is not None:
+            from .parallel.sharding import shard_spectrum
+
+            out = shard_spectrum(plan, state, lq, self._mesh, consts, ray_distances=rays,
+                                 file_sigma_override=sigmas)
+            return out if plan.track_individual_intensities else (out, None)
+        if self._nu_segments > 1:
+            from .parallel.sharding import segmented_spectrum
+
+            out = segmented_spectrum(plan, state, lq, self._nu_segments, consts,
+                                     ray_distances=rays, file_sigma_override=sigmas)
+            return out if plan.track_individual_intensities else (out, None)
+        f_nu, _total, _opac, i_nus = stage_spectrum(
+            plan, state, lq, consts, ray_distances=rays, file_sigmas=sigmas
+        )
+        return f_nu, i_nus
 
     def synthesize_batch(self, stellar_models):
         """F_nu [B, D, N] (host array) of a homogeneous list of models

@@ -506,3 +506,102 @@ def test_formal_solution_grad_layout_is_the_wrappers(cuda, dtype, spherical):
                                    torch.ones(1, dtype=dtype, device=cuda), a, None, spherical)
     assert getattr(tsolver.raytrace_grad_cuda,
                    "inward_launches" if spherical else "launches") == before
+
+
+def _batch_on_card(tmp_path, teffs=(4800.0, 5777.0, 6500.0)):
+    """(plan, BatchInputs) of a small plane-parallel batch: builtin:30 with
+    synthetic VALD lines and VALD broadening, 56 depths, 500 pixels."""
+    from stardis_tpu_torch import units as u
+    from stardis_tpu_torch.atom_data import build_builtin_atom_data
+    from stardis_tpu_torch.base import parse_config_to_model, read_stellar_model
+    from stardis_tpu_torch.io.synthetic import write_marcs_file
+    from stardis_tpu_torch.opacities.lines import synth_linelist
+    from stardis_tpu_torch.parallel.batch import make_batch
+
+    paths = []
+    for i, teff in enumerate(teffs):
+        paths.append(str(tmp_path / f"m{i}.mod"))
+        write_marcs_file(paths[-1], teff=teff)
+    cfg = {
+        "stardis_config_version": 1.0,
+        "atom_data": "builtin:30",
+        "input_model": {"type": "marcs", "fname": paths[0], "final_atomic_number": 30},
+        "opacity": {"bf": {"H_I": {}}, "ff": {"H_I": {}}, "rayleigh": ["H"],
+                    "line": {"disable": False,
+                             "broadening": ["radiation", "linear_stark", "quadratic_stark",
+                                            "van_der_waals"],
+                             "vald_linelist": {"use_linelist": True,
+                                               "use_vald_broadening": True}}},
+        "no_of_thetas": 10,
+    }
+    adata = synth_linelist(build_builtin_atom_data(30, include_linelists=True), 2000,
+                           5879.0, 5906.0)
+    config, adata, model0 = parse_config_to_model(cfg, atom_data=adata)
+    models = [model0] + [read_stellar_model(config, adata, p) for p in paths[1:]]
+    nus = u.Quantity(np.arange(5880.0, 5905.0, 0.05), u.AA).to(u.Hz, u.spectral()).value
+    return make_batch(config, adata, models, nus)
+
+
+def _stage1_tensors(state, quants):
+    return list(state) + [x for triple in quants.values() for x in triple]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_captured_stage1_replays_the_eager_bits(cuda, tmp_path, dtype):
+    """A replay of the captured stage 1 equals the eager stage bit for bit,
+    and a second replay on other temperatures equals the eager stage on
+    those: no stale buffer survives a replay."""
+    from stardis_tpu_torch import pipeline as tpipe
+
+    plan, batch = _batch_on_card(tmp_path)
+    consts = tpipe.device_constants(plan, dtype, cuda)
+    graph = tpipe.CapturedStage1(plan, consts, 3)
+    assert graph.pool_bytes > 0
+    for scale in (1.0, 1.04, 1.0):
+        temps = batch.temperatures * scale
+        eager = _stage1_tensors(*tpipe.stage_plasma_and_lines(
+            plan, torch.as_tensor(temps, device=cuda).to(dtype),
+            torch.as_tensor(batch.n_elem, device=cuda).to(dtype), consts))
+        with graph.replay(temps, batch.n_elem) as out:
+            replayed = [x.clone() for x in _stage1_tensors(*out)]
+        assert all(torch.equal(a, b) for a, b in zip(replayed, eager)), scale
+
+
+def test_run_batch_replays_a_cached_graph(cuda, tmp_path):
+    """run_batch captures stage 1 once per (plan, B) and replays it; its
+    F_nu equals the eager stage's through the same spectrum bit for bit,
+    and a SpectralService's request equals its eager stage's."""
+    from stardis_tpu_torch import pipeline as tpipe
+    from stardis_tpu_torch.parallel import batch as tbatch
+
+    plan, batch = _batch_on_card(tmp_path)
+    tbatch._STAGE1_CACHE.clear()
+    f_nu = tbatch.run_batch(plan, batch)
+    again = tbatch.run_batch(plan, batch)
+    assert len(tbatch._STAGE1_CACHE) == 1 and torch.equal(f_nu, again)
+    consts = tpipe.device_constants(plan, torch.float32, cuda)
+    state, quants = tpipe.stage_plasma_and_lines(
+        plan, torch.as_tensor(batch.temperatures, device=cuda).float(),
+        torch.as_tensor(batch.n_elem, device=cuda).float(), consts)
+    lines = tpipe.prepare_lines(plan, state, quants, consts)
+    eager = tpipe.spectrum_batch(plan, state, lines, consts, batch.ray_distances)[0]
+    assert torch.equal(f_nu, eager)
+    tbatch._STAGE1_CACHE.clear()
+
+
+def test_gradients_run_the_eager_stage(cuda, tmp_path, monkeypatch):
+    """Temperatures that require grad take the eager stage 1 (no graph is
+    captured or replayed) and carry a finite gradient."""
+    import dataclasses
+
+    from stardis_tpu_torch.parallel import batch as tbatch
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a differentiated run asked for a captured stage 1")
+
+    monkeypatch.setattr(tbatch, "captured_stage1", refuse)
+    plan, batch = _batch_on_card(tmp_path)
+    temps = torch.as_tensor(batch.temperatures, device=cuda).float().requires_grad_()
+    f_nu = tbatch.run_batch(plan, dataclasses.replace(batch, temperatures=temps))
+    f_nu[:, -1].sum().backward()
+    assert torch.isfinite(temps.grad).all() and (temps.grad.abs().amax(dim=1) > 0).all()
