@@ -201,14 +201,37 @@ Phases (any failure exits non-zero and prints no result):
      process with STARDIS_COMPILE_CACHE loads formal_solution from there
      (built by nvcc into that directory, not _build/), a second child
      loads it without nvcc, and their launches on one fixed input are
-     equal bit for bit (cold build and cached load times).
+     equal bit for bit (cold build and cached load times);
+ 18. the rest of the JAX package's public surface: (a) the eight examples
+     of examples/torch through main() at their script sizes (full_visible
+     200,000 points, teff_grid 16 models, serving_scan 7 Teffs, the fits 60
+     and 120 steps), run twice, the second run's warm walls logged beside
+     the card's name and power limit and its launches counted as the
+     "examples" path; quickstart's and rotation_broadening's F_nu equal bit
+     for bit to run_stardis on the same configuration, each fit's loss
+     falls, teff_grid's mesh equals its batch bit for bit, and
+     flexible_plasma's distances from Korg are logged, not checked; (b)
+     plasma.create_stellar_plasma on the MARCS sun: every PlasmaState field
+     equal bit for bit to the eager stage 1's; (c) run_stardis with
+     n_threads -2 raises ValueError with no kernel launched; (d) the memory
+     model with a captured graph resident: a Sim100AA SpectralService
+     (MEMORY_LINES lines over phase 9's 1M-point grid) unsegmented, then
+     with nu_segments="auto" under STARDIS_SEGMENT_BUDGET at
+     MEMORY_BUDGET_SHARE of the unsegmented service's peak (allocated bytes
+     plus the pool's free blocks, over the first request and a warm one):
+     K > 1, peak under the budget, the estimate with the pool within [1,
+     1.5] of the peak, F_nu against the unsegmented service at rtol 1e-6,
+     device_bytes_limit fallen by at least the pool's free blocks over the
+     first request (and the unrepaired formula's reading logged beside
+     it); five batch graphs captured into run_batch's cache of four, the
+     evicted one out of the registry.
 
 The kernels build in parallel (one nvcc per source).  The last line of
 standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 the line before it is the card's name and power limit, and the line
 before that holds each kernel's launches (summed over the main paths of
-phases 5, 7-12, 13, 14, 15, 16 and 17; the CLI and phase 17's compile-cache
+phases 5, 7-12, 13, 14, 15, 16, 17 and 18; the CLI and phase 17's compile-cache
 children run in processes of their own and are not counted), error, times and bound (the larger of the operations
 over the float32 peak and the bytes over the memory rate of an H100 SXM,
 from this run's inputs); every entry also holds yardstick_bound_ms, the
@@ -301,6 +324,11 @@ RANGE_SEGMENTS = 3
 MESH_SHARDS = 4
 SERVE_TEFFS = (5777.0, 6300.0, 9000.0)
 SERVE_GIANT_TEFF = 4200.0
+# phase 18: the examples of examples/torch, run through main() at their
+# script sizes
+EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "torch")
+EXAMPLES = ("quickstart", "teff_grid", "serving_scan", "rotation_broadening", "full_visible",
+            "flexible_plasma", "fit_stellar_parameters", "fit_with_emulator")
 KERNELS = ("line_opacity", "line_opacity_range", "formal_solution", "formal_solution_inward",
            "line_opacity_grad", "formal_solution_grad", "formal_solution_grad_inward")
 # published peaks of an H100 SXM at 700 W (float32 outside the tensor
@@ -3214,6 +3242,202 @@ def main():
     except Exception as exc:  # noqa: BLE001
         failures.append(f"host surface phase: {exc!r}")
     log(f"phase 17 took {time.perf_counter() - t_phase17:.1f} s")
+
+    # --- 18. the rest of the JAX package's public surface -------------------------
+    t_phase18 = time.perf_counter()
+    import importlib.util
+    import weakref
+
+    from stardis_tpu_torch.base import read_stellar_model
+    from stardis_tpu_torch.parallel.batch import STAGE1_CACHE_LIMIT, captured_stage1
+    from stardis_tpu_torch.plasma import create_stellar_plasma
+    from stardis_tpu_torch.serving import SpectralService
+    from stardis_tpu_torch.util import memory as mem
+
+    def example(name):
+        """examples/torch/<name>.py as a module."""
+        spec = importlib.util.spec_from_file_location(
+            f"torch_example_{name}", os.path.join(EXAMPLES_DIR, f"{name}.py"))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        return module
+
+    # (a) the eight examples through main() at their script sizes, twice: the
+    # second run is the warm one, and the path whose launches are counted
+    try:
+        modules = {name: example(name) for name in EXAMPLES}
+        for name, module in modules.items():
+            module.main()
+        results, walls = {}, {}
+        reset_counts()
+        for name, module in modules.items():
+            t0 = time.perf_counter()
+            results[name] = module.main()
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+        launches = path_launches["examples"] = read_counts()
+        for name in EXAMPLES:
+            log(f"phase 18 example {name}: warm wall {walls[name]:.3f} s ({card})")
+        log(f"phase 18 examples: launches {launches}")
+        for name in ("quickstart", "rotation_broadening"):
+            module = modules[name]
+            path = os.path.join(tmp.name, f"example_{name}.mod")
+            write_marcs_file(path, teff=module.TEFF, logg=module.LOGG)
+            step = 0.01 if name == "quickstart" else 0.02
+            ref = run_stardis(module.example_config(path),
+                              u.Quantity(np.arange(*module.LAMBDA_RANGE, step), u.AA))
+            same = bool(np.array_equal(results[name]["spectrum_nu"], ref.spectrum_nu.value))
+            log(f"phase 18 example {name}: F_nu equal bit for bit to run_stardis on its "
+                f"configuration: {same}")
+            if not same:
+                failures.append(f"example {name} differs from run_stardis")
+        for name in ("fit_stellar_parameters", "fit_with_emulator"):
+            losses = results[name]["losses"]
+            log(f"phase 18 example {name}: loss {losses[0]:.4e} -> {losses[-1]:.4e} over "
+                f"{len(losses)} steps; parameters {results[name]['params']}")
+            if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+                failures.append(f"example {name}: the loss did not fall ({losses})")
+        diff = results["flexible_plasma"]["korg_diff"]
+        log("phase 18 example flexible_plasma against Korg (max |rel diff|, independent / "
+            "coupled; logged, not checked): "
+            + ", ".join(f"{k} {a:.3g} / {b:.3g}" for k, (a, b) in diff.items()))
+        grid = results["teff_grid"]
+        if not (grid["mesh_equal"] and np.isfinite(grid["F_nu"]).all()):
+            failures.append("example teff_grid: the mesh differs from the batch")
+        if not (launches["line_opacity"] > 0 and launches["formal_solution"] > 0
+                and launches["line_opacity_grad"] > 0 and launches["formal_solution_grad"] > 0):
+            failures.append(f"examples: a kernel of the path was not launched: {launches}")
+    except Exception as exc:  # noqa: BLE001
+        failures.append(f"examples phase: {exc!r}")
+
+    # (b) create_stellar_plasma on the MARCS sun against the eager stage 1
+    try:
+        pconfig, padata, pmodel = parse_config_to_model(sim100aa_config(model_path))
+        pplan = build_simulation_plan(pconfig, padata, pmodel, nus)
+        pconsts = device_constants(pplan, torch.float32, dev)
+        eager, _ = stage_plasma_and_lines(
+            pplan, torch.as_tensor(pplan.temperatures, device=dev).float(),
+            torch.as_tensor(pplan.n_elem, device=dev).float(), pconsts)
+        state, ptables = create_stellar_plasma(pmodel, padata)
+        same = (np.array_equal(ptables.zs, pplan.tables.zs)
+                and all(torch.equal(getattr(state, f), getattr(eager, f))
+                        for f in state._fields))
+        log(f"phase 18 create_stellar_plasma on the MARCS sun (float32, {state.t.device}): "
+            f"{len(state._fields)} PlasmaState fields equal bit for bit to the eager stage 1: "
+            f"{same}")
+        if not same:
+            failures.append("create_stellar_plasma differs from the eager stage 1")
+    except Exception as exc:  # noqa: BLE001
+        failures.append(f"create_stellar_plasma phase: {exc!r}")
+
+    # (c) n_threads: -2 is refused before any kernel launches
+    try:
+        bad = sim100aa_config(model_path)
+        bad["n_threads"] = -2
+        reset_counts()
+        try:
+            run_stardis(bad, lam_q)
+            refused = "no error"
+        except ValueError as exc:
+            refused = str(exc)
+        counts = read_counts()
+        log(f"phase 18 run_stardis with n_threads -2: {refused!r}; launches {counts}")
+        if "n_threads" not in refused or any(counts.values()):
+            failures.append(f"n_threads -2: {refused!r}, launches {counts}")
+    except Exception as exc:  # noqa: BLE001
+        failures.append(f"n_threads phase: {exc!r}")
+
+    # (d) the memory model with a captured graph resident: a Sim100AA service
+    # on phase 9's wide grid, budgeted at MEMORY_BUDGET_SHARE of its
+    # unsegmented peak
+    try:
+        d_adata = synth_linelist(build_builtin_atom_data(30, include_linelists=True),
+                                 MEMORY_LINES, *FLAGSHIP_LINE_RANGE)
+        d_lam = u.Quantity(np.linspace(*FLAGSHIP_LAMBDA, MEMORY_POINTS[-1]), u.AA)
+        d_cfg = sim100aa_config(model_path)
+
+        def unrepaired_limit():
+            """device_bytes_limit as it read before the repair: free plus
+            reserved minus allocated, a live pool's free blocks included."""
+            free, _ = torch.cuda.mem_get_info(dev)
+            return free + torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+
+        def served_peak(nu_segments):
+            """(service, F_nu, footprint peak, (device_bytes_limit before and
+            after the first request, the unrepaired reading before and
+            after it)): the peak allocated over the first request (the
+            capture included) and a warm one, plus the pool's free blocks."""
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            limits = [mem.device_bytes_limit(dev), unrepaired_limit()]
+            torch.cuda.reset_peak_memory_stats()
+            svc = SpectralService(d_cfg, d_lam, atom_data=d_adata, nu_segments=nu_segments)
+            model = read_stellar_model(svc.config, svc.atom_data)
+            f_first = svc.synthesize(model)["F_nu"]
+            torch.cuda.synchronize()
+            limits[1:1] = [mem.device_bytes_limit(dev)]
+            limits.append(unrepaired_limit())
+            peak = torch.cuda.max_memory_allocated() - base
+            torch.cuda.reset_peak_memory_stats()
+            f_warm = svc.synthesize(model)["F_nu"]
+            torch.cuda.synchronize()
+            peak = max(peak, torch.cuda.max_memory_allocated() - base)
+            if not np.array_equal(f_first, f_warm):
+                failures.append(f"service nu_segments={nu_segments}: two requests differ")
+            return svc, f_warm, peak + svc._stage1.pool_free_bytes, limits
+
+        whole, f_whole, peak_whole, _ = served_peak(1)
+        del whole
+        budget = int(MEMORY_BUDGET_SHARE * peak_whole)
+        os.environ["STARDIS_SEGMENT_BUDGET"] = str(budget)
+        try:
+            svc, f_auto, peak, (limit0, limit1, raw0, raw1) = served_peak("auto")
+        finally:
+            del os.environ["STARDIS_SEGMENT_BUDGET"]
+        k, graph = svc._nu_segments, svc._stage1
+        estimate = model_estimate(svc._plan, k) + graph.pool_bytes
+        rel = max_rel(f_auto, f_whole)
+        log(f"phase 18 memory model: Sim100AA service, {MEMORY_LINES} lines x "
+            f"{MEMORY_POINTS[-1]} points: unsegmented peak {peak_whole / 1e9:.4f} GB; budget "
+            f"{budget / 1e9:.4f} GB ({MEMORY_BUDGET_SHARE:.0%}); nu_segments='auto' chose K = "
+            f"{k}; peak {peak / 1e9:.4f} GB (allocated + the pool's free blocks); the graph's "
+            f"pool {graph.pool_bytes / 1e6:.3f} MB, {graph.pool_free_bytes / 1e6:.3f} MB of it "
+            f"free; estimate with the pool {estimate / 1e9:.4f} GB, without it "
+            f"{(estimate - graph.pool_bytes) / 1e9:.4f} GB; F_nu against the unsegmented "
+            f"service max rel err {rel:.3e} (bound 1e-6) ({card})")
+        log(f"phase 18 device_bytes_limit before the service's first request "
+            f"{limit0 / 1e9:.6f} GB, after it {limit1 / 1e9:.6f} GB (fell by "
+            f"{(limit0 - limit1) / 1e6:.3f} MB; the pool's free blocks "
+            f"{graph.pool_free_bytes / 1e6:.3f} MB); free + reserved - allocated, the reading "
+            f"before the repair: {raw0 / 1e9:.6f} GB, then {raw1 / 1e9:.6f} GB (fell by "
+            f"{(raw0 - raw1) / 1e6:.3f} MB)")
+        if not (k > 1 and peak < budget and rel <= 1e-6
+                and limit0 - limit1 >= graph.pool_free_bytes
+                and graph in mem.resident_pools(graph.device)):
+            failures.append(f"budgeted service: K {k}, peak {peak}, budget {budget}, rel "
+                            f"{rel:.3e}, limit {limit0} -> {limit1}, pool {graph.pool_bytes}")
+        check_estimate(f"budgeted service, K = {k}, the graph's pool included", estimate, peak)
+        del svc, graph
+
+        # five batch graphs in run_batch's cache of STAGE1_CACHE_LIMIT: the
+        # first one captured is evicted and leaves the registry
+        graphs = [weakref.ref(captured_stage1(pplan, n, torch.float32, dev))
+                  for n in range(1, STAGE1_CACHE_LIMIT + 2)]
+        live = [g() for g in graphs]
+        resident = mem.resident_pools(torch.device("cuda", torch.cuda.current_device()))
+        left = live[0] is None and all(g is not None for g in live[1:])
+        registered = left and all(g in resident for g in live[1:])
+        log(f"phase 18 batch graphs for 1-{len(graphs)} models: the first evicted "
+            f"{live[0] is None}, its pool out of the registry {left}, the other "
+            f"{len(graphs) - 1} registered {registered}; pools "
+            + ", ".join(f"{g.pool_bytes / 1e6:.3f}" for g in live[1:] if g is not None) + " MB")
+        if not (left and registered):
+            failures.append("an evicted batch graph stayed in the registry")
+        del live, resident
+    except Exception as exc:  # noqa: BLE001
+        failures.append(f"memory model phase 18: {exc!r}")
+    log(f"phase 18 took {time.perf_counter() - t_phase18:.1f} s")
     tmp.cleanup()
 
     if failures:

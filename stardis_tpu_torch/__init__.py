@@ -15,7 +15,8 @@ stardis_tpu_torch`` (the command line; ``--compile-cache DIR`` or
 across processes with ``parallel.distributed``),
 ``radiation_field.create_stellar_radiation_field`` (the whole device
 pipeline for a prepared model, outputs in the caller's frequency order),
-and ``postprocessing`` (rotational and instrumental broadening: scipy host
+``plasma.create_stellar_plasma`` (a model's LTE plasma state), and
+``postprocessing`` (rotational and instrumental broadening: scipy host
 functions and differentiable torch ones).  Atom data: carsus stores are
 converted by ``python -m stardis_tpu_torch.atom_data.convert`` (or in
 memory by ``atom_data.convert.convert_frames``), published ones fetched by

@@ -465,3 +465,9 @@ def build_molecule_data_hh(names=None, temps=None) -> MoleculeData:
         ion2=ion2s,
         dissociation_energies=np.asarray(d0s, dtype=float),
     )
+
+
+def build_demo_molecule_data():
+    """Backwards-compatible alias: the builtin molecular tables are the
+    Huber & Herzberg anchored set (previously a rotational-only demo)."""
+    return build_molecule_data_hh()

@@ -28,6 +28,29 @@ from .radiation_field.solver import gauss_legendre_thetas
 logger = logging.getLogger(__name__)
 
 
+def set_num_threads(n_threads):
+    """The config's ``n_threads`` check (the JAX package's
+    ``set_num_threads``, reference base.py:48-81).
+
+    The reference drives Numba's thread pool; here the card runs the
+    kernels and CUDA schedules its own threads, so this validates the value
+    and logs the execution mode, and changes no state: it does not call
+    ``torch.set_num_threads``, since a CPU thread count changes the order
+    of the CPU's reductions.  Accepted: 1 (serial), -99 (max), n > 1;
+    other values raise.
+    """
+    if n_threads == 1:
+        logger.info("Running in serial mode (the card still runs its kernels in parallel)")
+    elif n_threads == -99:
+        logger.info("Running with max threads (the card's default)")
+    elif n_threads > 1:
+        logger.info("Running with %d threads requested (advisory on the card)", n_threads)
+    else:
+        raise ValueError(
+            "n_threads must be a positive integer, or -99 for max threads."
+        )
+
+
 def _load_atom_data(spec: str) -> AtomData:
     """``builtin`` / ``builtin:<Zmax>``: the generated dataset, with its
     linelist and molecular tables; a published store name
@@ -214,15 +237,17 @@ def check_segments(nu_segments, mesh=None):
         raise ValueError(f"mesh must be a 1-D 'nu' parallel.sharding.Mesh, got {mesh!r}")
 
 
-def resolve_segments(nu_segments, plan, dtype, device):
+def resolve_segments(nu_segments, plan, dtype, device, bytes_limit=None, pool_bytes=0):
     """An integer segment count; "auto" asks the memory model
-    (``util.memory.choose_nu_segments``) for this plan on this device."""
+    (``util.memory.choose_nu_segments``) for this plan on this device,
+    with ``bytes_limit`` and ``pool_bytes`` as it takes them."""
     if nu_segments != "auto":
         return int(nu_segments)
     from .util.memory import choose_nu_segments
 
-    k = choose_nu_segments(plan, itemsize=torch.empty(0, dtype=dtype).element_size(),
-                           device=device)
+    k = choose_nu_segments(plan, bytes_limit,
+                           itemsize=torch.empty(0, dtype=dtype).element_size(),
+                           device=device, pool_bytes=pool_bytes)
     if k > 1:
         logger.info("Auto-segmentation: %d serial wavelength segments", k)
     return k
@@ -285,6 +310,7 @@ def run_stardis(config, tracing_lambdas_or_nus, add_config_dict=None,
             "device or with nu_segments, or drive parallel.sharding.shard_spectrum for "
             "sharded F_nu and I_nus"
         )
+    set_num_threads(int(config.n_threads) if config.n_threads != 0 else -99)
     from .util.profiling import StageTimer
 
     timer = StageTimer(grid_cells=len(tracing_nus_hz) * stellar_model.no_of_depth_points)

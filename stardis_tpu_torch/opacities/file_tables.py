@@ -114,3 +114,67 @@ def sigma_file(tracing_lambdas, temperatures, fpath, opacity_source):
         return np.broadcast_to(sig_1d, (len(temps), len(lambdas))).copy()
 
     raise ValueError(f"Unknown opacity_source: {opacity_source}")
+
+
+# ----------------------------------------------------------------------
+# John 1988 analytic H- fits (no data file needed).  As in the JAX
+# package, ``opacity.file`` does not reach them (ROADMAP.md Queue 3).
+# ----------------------------------------------------------------------
+
+_JOHN88_BF_C = np.array(
+    [152.519, 49.534, -118.858, 92.536, -34.194, 4.982]
+)
+
+
+def john88_hminus_bf_sigma(lambda_aa):
+    """H- bound-free cross-section [cm^2 per H- ion], John 1988 eq. 4-5.
+
+    Valid 1250 AA < lambda < 16419 AA (the photodetachment threshold); 0
+    outside.
+    """
+    lam_um = np.asarray(lambda_aa, dtype=float) / 1e4
+    lam0 = 1.6419  # um, threshold
+    x = np.clip(1.0 / lam_um - 1.0 / lam0, 0.0, None)
+    f = np.zeros_like(lam_um)
+    sqrt_x = np.sqrt(x)
+    for n, c in enumerate(_JOHN88_BF_C, start=1):
+        f = f + c * sqrt_x ** (n - 1)
+    sigma = 1e-18 * lam_um**3 * x**1.5 * f
+    return np.where((lam_um > 0.125) & (lam_um < lam0), sigma, 0.0)
+
+
+_JOHN88_FF_TABLE_HIGH = np.array(
+    # lambda > 0.3645 um coefficients A_n..F_n for n=1..6 (John 1988 table 3a)
+    [
+        [0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+        [2483.346, 285.827, -2054.291, 2827.776, -1341.537, 208.952],
+        [-3449.889, -1158.382, 8746.523, -11485.632, 5303.609, -812.939],
+        [2200.040, 2427.719, -13651.105, 16755.524, -7510.494, 1132.738],
+        [-696.271, -1841.400, 8624.970, -10051.530, 4400.067, -655.020],
+        [88.283, 444.517, -1863.864, 2095.288, -901.788, 132.985],
+    ]
+)
+
+
+def john88_hminus_ff_sigma(lambda_aa, temperature):
+    """H- free-free 'cross-section' [cm^4/dyn], [T, lambda]: kappa / (n(HI)
+    n_e k_B T), the Bell & Berrington table convention the reference uses
+    (multiply by n(HI) n_e k_B T for alpha in 1/cm).  John 1988 eq. 6.
+    Valid lambda > 3645 AA, 1400 K < T < 10080 K; clipped at 0.
+    """
+    lam_um = np.atleast_1d(np.asarray(lambda_aa, dtype=float)) / 1e4
+    t = np.atleast_1d(np.asarray(temperature, dtype=float))[:, None]
+    theta = 5040.0 / t
+    kappa = np.zeros((t.shape[0], lam_um.shape[0]))
+    for n in range(1, 7):
+        a, b, c, d, e, f = _JOHN88_FF_TABLE_HIGH[n - 1]
+        kappa = kappa + theta ** ((n + 1) / 2.0) * (
+            lam_um**2 * a
+            + b
+            + c / lam_um
+            + d / lam_um**2
+            + e / lam_um**3
+            + f / lam_um**4
+        )
+    # John's formula gives kappa in cm^4/dyn once scaled by 1e-29
+    return np.clip(kappa * 1e-29, 0.0, None)

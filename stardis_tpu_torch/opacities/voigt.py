@@ -254,6 +254,19 @@ def voigt_profile_region1(delta_nu, doppler_width, gamma):
     return faddeeva_real_region1(x, y) / (SQRT_PI * doppler_width)
 
 
+def faddeeva(z):
+    """w(z) as a complex tensor on the input's device: the real part by
+    ``faddeeva_real``, the imaginary part 0 (the port of the JAX package's
+    complex-argument wrapper; the pipeline consumes only Re[w], and the
+    line kernel keeps its own inlined w4).  ``z``: a complex tensor, or
+    anything ``torch.as_tensor`` takes."""
+    z = torch.as_tensor(z)
+    if not z.is_complex():
+        z = torch.complex(z, torch.zeros_like(z))
+    re = faddeeva_real(z.real, z.imag)
+    return torch.complex(re, torch.zeros_like(re))
+
+
 def voigt_profile(delta_nu, doppler_width, gamma):
     """Reference-convention Voigt profile; phi(0, 1, 0) = 1/sqrt(pi)."""
     x = delta_nu / doppler_width

@@ -76,6 +76,7 @@ from .radiation_field.solver import (
     raytrace,
     raytrace_plain,
 )
+from .util import memory
 
 logger = logging.getLogger(__name__)
 
@@ -444,6 +445,13 @@ def device_constants(plan: SimulationPlan, dtype, device) -> DeviceConstants:
 COLUMN_BLOCK = 64
 
 
+def padded_columns(n_cols, device):
+    """Indices of ``n_cols`` depth columns padded with copies of the last
+    one to a multiple of COLUMN_BLOCK: the layout stage 1 solves in."""
+    return torch.arange(-(-n_cols // COLUMN_BLOCK) * COLUMN_BLOCK,
+                        device=device).clamp_(max=n_cols - 1)
+
+
 def _split_models(x, n_models):
     """[..., B * D] columns -> [B, ..., D], a view."""
     return x.unflatten(-1, (n_models, -1)).movedim(-2, 0)
@@ -488,8 +496,7 @@ def stage_plasma_and_lines(plan: SimulationPlan, temps, n_elem, consts):
     # with copies of the last one to a multiple of COLUMN_BLOCK
     t = temps.reshape(-1)
     n_cols = t.shape[0]
-    cols = torch.arange(-(-n_cols // COLUMN_BLOCK) * COLUMN_BLOCK,
-                        device=t.device).clamp_(max=n_cols - 1)
+    cols = padded_columns(n_cols, t.device)
     t = t[cols]
     n_elem = n_elem.transpose(0, 1).clone(memory_format=torch.contiguous_format)
     state = solve_lte(t, n_elem.view(n_elem.shape[0], -1)[:, cols], consts.tables)
@@ -541,9 +548,11 @@ class CapturedStage1:
     replay.  ``replay`` copies the inputs in and yields the outputs under
     the graph's own lock, so the caller consumes them (validates them,
     prepares Kernel 1's inputs, runs the spectrum) before another thread
-    can replay.  A failed capture or replay raises; nothing falls back to
-    the eager stage.  CUDA only, and without autograd: a differentiated
-    run calls ``stage_plasma_and_lines`` itself."""
+    can replay.  The capture registers its pool with the memory model
+    (``util.memory.register_pool``) for as long as it lives.  A failed
+    capture or replay raises; nothing falls back to the eager stage.  CUDA
+    only, and without autograd: a differentiated run calls
+    ``stage_plasma_and_lines`` itself."""
 
     def __init__(self, plan: SimulationPlan, consts: DeviceConstants, n_models=None):
         device = consts.tracing_nus.device
@@ -570,9 +579,16 @@ class CapturedStage1:
             with torch.cuda.graph(self._graph, capture_error_mode="thread_local"):
                 self._out = stage_plasma_and_lines(plan, self._temps, self._n_elem, consts)
             torch.cuda.synchronize()
-        pool = self._graph.pool()
-        self.pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                              if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+        pool = tuple(self._graph.pool())
+        segments = [seg for seg in torch.cuda.memory_snapshot()
+                    if tuple(seg.get("segment_pool_id", ())) == pool]
+        self.device = device
+        self.pool_bytes = sum(seg["total_size"] for seg in segments)
+        # the pool's blocks that no tensor holds; a replay allocates nothing
+        # and the outputs stay held, so both counts hold while the graph lives
+        self.pool_free_bytes = sum(seg["total_size"] - seg["allocated_size"]
+                                   for seg in segments)
+        memory.register_pool(self)
 
     @contextmanager
     def replay(self, temps, n_elem, timings=None):

@@ -31,7 +31,9 @@ and the depth count:
 * ``synthesize_batch`` goes through ``parallel.batch.run_batch`` (whose
   captured stage 1 is cached per plan and batch size);
 * ``nu_segments`` K or ``"auto"`` serves through the serial wavelength
-  segments of ``parallel.sharding.segmented_spectrum``.
+  segments of ``parallel.sharding.segmented_spectrum``; "auto" counts the
+  service's captured graph's pool as fixed overhead, against the budget
+  as it stood before the capture (``util.memory``).
 
 The JAX service's refusal of file-table drift in a batch is never reached
 (both its callers pass ``reject_file_drift=False``), so the port has none:
@@ -72,6 +74,7 @@ from .pipeline import (
     validate_line_quants,
 )
 from .radiation_field.solver import gauss_legendre_thetas
+from .util.memory import segment_budget
 
 logger = logging.getLogger(__name__)
 
@@ -127,10 +130,14 @@ class SpectralService:
         self._plan = build_simulation_plan(self.config, self.atom_data, stellar_model,
                                            self._nus)
         self._consts = device_constants(self._plan, self._dtype, self._device)
+        # "auto" sizes the segments against the budget as it stood before
+        # this service's graph, with the graph's pool as fixed overhead
+        budget = segment_budget(self._device) if self._nu_segments == "auto" else None
         if self._device.type == "cuda" and self._mesh is None:
             self._stage1 = CapturedStage1(self._plan, self._consts)
+        pool = self._stage1.pool_bytes if self._stage1 is not None else 0
         self._nu_segments = resolve_segments(self._nu_segments, self._plan, self._dtype,
-                                             self._device)
+                                             self._device, budget, pool)
         if self._nu_segments > 1:
             logger.info("serving through %d serial wavelength segments", self._nu_segments)
         self.stats.compiles += 1

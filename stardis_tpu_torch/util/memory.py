@@ -28,6 +28,18 @@ it for the smallest K whose footprint fits.  There is no retry on an
 out-of-memory error: a budget too small for one pixel returns K = 1 and
 the device reports the failure.
 
+A CUDA graph of stage 1 (``pipeline.CapturedStage1``, replayed by
+``serving.SpectralService`` and by ``parallel.batch.run_batch``) keeps a
+private memory pool for as long as it lives: its outputs and the free
+blocks of its workspace, which no other allocation can use.  Each capture
+registers itself (``register_pool``, held weakly: an evicted or dropped
+graph leaves with its pool), ``device_bytes_limit`` takes the free blocks
+of every live pool on the device out of what it counts as free, and a
+service's "auto" segments count its own pool as fixed overhead
+(``fixed_overhead_bytes(pool_bytes=)``) against the budget as it stood
+before the capture.  ``chip_smoke.py`` phase 18 holds a budgeted service's
+peak, its pool included, to the same [1, 1.5] bound.
+
 The model covers forward-only runs.  A differentiated run keeps every
 range's saved tensors (its opacities and source; Kernel 2b recomputes
 the sweep, so no [D, n, T] intensity is saved) until the backward, so
@@ -39,6 +51,8 @@ from __future__ import annotations
 
 import math
 import os
+import threading
+import weakref
 
 #: the card's device memory where no CUDA device can be asked (NVIDIA H100
 #: 80GB)
@@ -57,18 +71,54 @@ RANGE_ARRAYS = 3
 LINE_ARRAYS = 8
 
 
+# the live captured graphs whose private pools hold device memory, held
+# weakly so that registering one keeps nothing alive; the lock keeps a
+# registration from changing the set while another thread lists it
+_RESIDENT_POOLS = weakref.WeakSet()
+_POOLS_LOCK = threading.Lock()
+
+
+def register_pool(owner):
+    """Count ``owner``'s private memory pool as resident while ``owner``
+    lives: an object with ``device`` (a torch.device with its index),
+    ``pool_bytes`` and ``pool_free_bytes`` (the pool's bytes that no
+    tensor holds), which do not change after the capture."""
+    with _POOLS_LOCK:
+        _RESIDENT_POOLS.add(owner)
+
+
+def resident_pools(device):
+    """The live registered pools on ``device`` (a torch.device with its
+    index)."""
+    with _POOLS_LOCK:
+        pools = list(_RESIDENT_POOLS)
+    return [p for p in pools if p.device == device]
+
+
 def device_bytes_limit(device=None):
     """Bytes the card can still give this process: free device memory
     (``torch.cuda.mem_get_info``) plus what the caching allocator holds
-    unused.  ``DEFAULT_BYTES_LIMIT`` without a CUDA device."""
+    unused, less the free blocks of every live captured graph's private
+    pool on the device (``register_pool``), which no other allocation can
+    use.  ``DEFAULT_BYTES_LIMIT`` without a CUDA device."""
     import torch
 
     device = torch.device("cuda" if device is None else device)
     if device.type != "cuda" or not torch.cuda.is_available():
         return DEFAULT_BYTES_LIMIT
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     free, _total = torch.cuda.mem_get_info(device)
+    pools = sum(p.pool_free_bytes for p in resident_pools(device))
     return int(free + torch.cuda.memory_reserved(device)
-               - torch.cuda.memory_allocated(device))
+               - torch.cuda.memory_allocated(device) - pools)
+
+
+def segment_budget(device=None):
+    """The bytes "auto" segments may fill: the ``STARDIS_SEGMENT_BUDGET``
+    variable when set, else ``device_bytes_limit(device)``."""
+    env = os.environ.get("STARDIS_SEGMENT_BUDGET")
+    return int(float(env)) if env else device_bytes_limit(device)
 
 
 def per_pixel_bytes(n_depth: int, n_thetas: int, n_alpha_sources: int,
@@ -102,13 +152,17 @@ def count_alpha_sources(plan) -> int:
     return n
 
 
-def fixed_overhead_bytes(plan, n_segments: int = 1, itemsize: int = 4) -> int:
+def fixed_overhead_bytes(plan, n_segments: int = 1, itemsize: int = 4,
+                         pool_bytes: int = 0) -> int:
     """Segment-independent device bytes: the line sets' [L, D] arrays and,
-    for K > 1 segments, the preallocated F_nu (and I_nu when tracked)."""
+    for K > 1 segments, the preallocated F_nu (and I_nu when tracked);
+    plus ``pool_bytes``, the pool of the run's captured stage-1 graph
+    (``CapturedStage1.pool_bytes``; it also holds stage 1's three line
+    planes, which the line arrays count again, so the sum errs high)."""
     n_depth = len(plan.temperatures)
     n_lines = sum(ld.n_lines for ld in (plan.line_data, plan.molecule_line_data)
                   if ld is not None)
-    fixed = LINE_ARRAYS * n_lines * n_depth * itemsize
+    fixed = LINE_ARRAYS * n_lines * n_depth * itemsize + int(pool_bytes)
     if n_segments > 1:
         columns = 1 + (len(plan.weights) if plan.track_individual_intensities else 0)
         fixed += columns * n_depth * len(plan.tracing_nus) * itemsize
@@ -116,27 +170,25 @@ def fixed_overhead_bytes(plan, n_segments: int = 1, itemsize: int = 4) -> int:
 
 
 def choose_nu_segments(plan, bytes_limit: int | None = None, itemsize: int = 4,
-                       device=None) -> int:
+                       device=None, pool_bytes: int = 0) -> int:
     """Smallest serial segment count whose footprint fits the budget.
 
-    bytes_limit : the budget in bytes; default the ``STARDIS_SEGMENT_BUDGET``
-        variable, else ``device_bytes_limit(device)``.
+    bytes_limit : the budget in bytes; default ``segment_budget(device)``.
+    pool_bytes : a captured stage-1 graph's pool that the budget must also
+        hold (fixed overhead; a service passes its own).
     Returns 1 when the whole grid fits, and when not even a one-pixel
     range fits (segments cannot help); raises past ``MAX_SEGMENTS``.
     """
-    env = os.environ.get("STARDIS_SEGMENT_BUDGET")
-    if bytes_limit is None and env:
-        bytes_limit = int(float(env))
     if bytes_limit is None:
-        bytes_limit = device_bytes_limit(device)
+        bytes_limit = segment_budget(device)
     budget = HEADROOM * bytes_limit
     n_nu = len(plan.tracing_nus)
     per_px = per_pixel_bytes(len(plan.temperatures), len(plan.weights),
                              count_alpha_sources(plan), itemsize,
                              tracked=bool(plan.track_individual_intensities))
-    if fixed_overhead_bytes(plan, 1, itemsize) + per_px * n_nu <= budget:
+    if fixed_overhead_bytes(plan, 1, itemsize, pool_bytes) + per_px * n_nu <= budget:
         return 1
-    avail = budget - fixed_overhead_bytes(plan, 2, itemsize)
+    avail = budget - fixed_overhead_bytes(plan, 2, itemsize, pool_bytes)
     if avail < per_px:
         return 1
     k = max(2, math.ceil(n_nu * per_px / avail))

@@ -605,3 +605,63 @@ def test_gradients_run_the_eager_stage(cuda, tmp_path, monkeypatch):
     f_nu = tbatch.run_batch(plan, dataclasses.replace(batch, temperatures=temps))
     f_nu[:, -1].sum().backward()
     assert torch.isfinite(temps.grad).all() and (temps.grad.abs().amax(dim=1) > 0).all()
+
+
+def test_captured_pools_enter_the_memory_model(cuda, tmp_path, monkeypatch):
+    """A captured graph registers its pool while it lives: device_bytes_limit
+    falls by at least the pool's free bytes at the capture; a service's
+    "auto" segments count its own pool as fixed overhead against the
+    budget; a batch graph evicted from run_batch's cache leaves the
+    registry."""
+    import weakref
+
+    from stardis_tpu_torch import pipeline as tpipe
+    from stardis_tpu_torch import units as u
+    from stardis_tpu_torch.atom_data import build_builtin_atom_data
+    from stardis_tpu_torch.io.synthetic import write_marcs_file
+    from stardis_tpu_torch.parallel import batch as tbatch
+    from stardis_tpu_torch.serving import SpectralService
+    from stardis_tpu_torch.util import memory as mem
+
+    plan, batch = _batch_on_card(tmp_path)
+    consts = tpipe.device_constants(plan, torch.float32, cuda)
+    torch.cuda.synchronize()
+    before = mem.device_bytes_limit(cuda)
+    graph = tpipe.CapturedStage1(plan, consts, 3)
+    after = mem.device_bytes_limit(cuda)
+    assert mem.resident_pools(graph.device) == [graph]
+    assert 0 <= graph.pool_free_bytes <= graph.pool_bytes
+    assert before - after >= graph.pool_free_bytes
+    dropped = weakref.ref(graph)
+    del graph
+    assert dropped() is None and mem.resident_pools(torch.device(cuda.type, 0)) == []
+
+    model = str(tmp_path / "sun.mod")
+    write_marcs_file(model)
+    cfg = {"stardis_config_version": 1.0, "atom_data": "builtin:30",
+           "input_model": {"type": "marcs", "fname": model, "final_atomic_number": 30},
+           "opacity": {"bf": {"H_I": {}}, "ff": {"H_I": {}},
+                       "line": {"disable": False, "broadening": ["radiation"]}},
+           "no_of_thetas": 10}
+    lam = u.Quantity(np.linspace(4000.0, 7000.0, 200_000), u.AA)
+    svc = SpectralService(cfg, lam, nu_segments="auto",
+                          atom_data=build_builtin_atom_data(30, include_linelists=True))
+    budget = 200 * 10**6
+    monkeypatch.setenv("STARDIS_SEGMENT_BUDGET", str(budget))
+    from stardis_tpu_torch.base import read_stellar_model
+
+    out = svc.synthesize(read_stellar_model(svc.config, svc.atom_data))
+    pool = svc._stage1.pool_bytes
+    assert mem.resident_pools(svc._stage1.device) == [svc._stage1]
+    assert svc._nu_segments == mem.choose_nu_segments(svc._plan, budget, pool_bytes=pool) > 1
+    assert np.isfinite(out["F_nu"]).all()
+
+    tbatch._STAGE1_CACHE.clear()
+    first = weakref.ref(tbatch.captured_stage1(plan, 1, torch.float32, cuda))
+    for n_models in range(2, 2 + tbatch.STAGE1_CACHE_LIMIT):
+        tbatch.captured_stage1(plan, n_models, torch.float32, cuda)
+    assert first() is None
+    cached = list(tbatch._STAGE1_CACHE.values())
+    assert sorted(map(id, mem.resident_pools(svc._stage1.device))) == sorted(
+        map(id, cached + [svc._stage1]))
+    tbatch._STAGE1_CACHE.clear()

@@ -166,3 +166,104 @@ def test_auto_segments_under_a_budget(tmp_path, monkeypatch):
                                         nu_segments="auto")
     np.testing.assert_allclose(np.asarray(seg.spectrum_nu), np.asarray(whole.spectrum_nu),
                                rtol=1e-12, atol=0)
+
+
+# ----------------------------------------------------------------------
+# a captured stage-1 graph's pool (pipeline.CapturedStage1) in the model
+# ----------------------------------------------------------------------
+
+class _Capture:
+    """Stands in for a CapturedStage1: what ``util.memory.register_pool``
+    reads of it."""
+
+    def __init__(self, device, pool_bytes, pool_free_bytes):
+        self.device = device
+        self.pool_bytes = pool_bytes
+        self.pool_free_bytes = pool_free_bytes
+
+
+def test_pool_bytes_are_fixed_overhead_and_can_raise_k():
+    """A graph's pool adds its bytes to the fixed overhead at any K, and a
+    budget that holds the whole grid without the pool needs segments with
+    it; the K chosen with the pool fits the budget with the pool."""
+    plan = _fake_plan(n_nu=200_000, n_lines=1000)
+    pool = 40 * 10**6
+    for k in (1, 2, 5):
+        assert (mem.fixed_overhead_bytes(plan, k, 4, pool_bytes=pool)
+                == mem.fixed_overhead_bytes(plan, k, 4) + pool)
+    n_nu, per_px = len(plan.tracing_nus), _per_px(plan)
+    budget = int((mem.fixed_overhead_bytes(plan, 1) + per_px * n_nu) / mem.HEADROOM) + 1
+    assert mem.choose_nu_segments(plan, budget) == 1
+    k = mem.choose_nu_segments(plan, budget, pool_bytes=pool)
+    assert k > 1
+    assert (mem.fixed_overhead_bytes(plan, k, 4, pool) + -(-n_nu // k) * per_px
+            <= mem.HEADROOM * budget)
+    assert mem.choose_nu_segments(plan, budget, pool_bytes=pool // 2) <= k
+
+
+def _fake_card(monkeypatch, free=10_000, reserved=3_000, allocated=1_000):
+    """torch.cuda's memory queries of one card, cuda:0, without a card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device: (free, 80_000))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda device: reserved)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda device: allocated)
+
+
+def test_live_pools_leave_the_device_limit_and_dead_ones_the_registry(monkeypatch):
+    """device_bytes_limit takes out the free bytes of every live pool on
+    its device (not another card's); a capture that is dropped leaves the
+    registry, and the limit comes back."""
+    _fake_card(monkeypatch)
+    card0, card1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    assert mem.device_bytes_limit(card0) == 10_000 + 3_000 - 1_000
+    mine = _Capture(card0, pool_bytes=1_500, pool_free_bytes=600)
+    other = _Capture(card1, pool_bytes=900, pool_free_bytes=400)
+    mem.register_pool(mine)
+    mem.register_pool(other)
+    assert mem.resident_pools(card0) == [mine]
+    for device in (card0, "cuda", None):
+        assert mem.device_bytes_limit(device) == 12_000 - 600
+    del mine
+    assert mem.resident_pools(card0) == []
+    assert mem.device_bytes_limit(card0) == 12_000
+    assert mem.resident_pools(card1) == [other]
+
+
+def test_registry_holds_under_racing_threads(monkeypatch):
+    """Threads registering and dropping captures while others read the
+    limit: every read sees a whole set, and only the kept captures stay."""
+    import sys
+    import threading
+
+    _fake_card(monkeypatch)
+    card0 = torch.device("cuda", 0)
+    kept, errors = [], []
+
+    def churn(i):
+        try:
+            for j in range(200):
+                capture = _Capture(card0, 10, 1)
+                mem.register_pool(capture)
+                if j % 50 == 0:
+                    kept.append(capture)
+                limit = mem.device_bytes_limit(card0)
+                assert 12_000 - 10 * 200 <= limit <= 12_000
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(exc)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=churn, args=(i,)) for i in range(10)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and not errors
+    assert len(mem.resident_pools(card0)) == len(kept) == 40
+    assert mem.device_bytes_limit(card0) == 12_000 - 40
+    kept.clear()
+    assert mem.resident_pools(card0) == []
