@@ -224,14 +224,31 @@ Phases (any failure exits non-zero and prints no result):
      device_bytes_limit fallen by at least the pool's free blocks over the
      first request (and the unrepaired formula's reading logged beside
      it); five batch graphs captured into run_batch's cache of four, the
-     evicted one out of the registry.
+     evicted one out of the registry;
+ 19. molecules on the batched, served, scanned and sharded paths, at the
+     spherical cool giant's full width (giant_config: Sim100AA's 10,000
+     lambda and 20 theta, 100k atomic + 20k molecular lines, three file
+     tables), float32: a batch of MOL_BATCH giants (Teff 3600-4400 K,
+     log g 2, R 1.5-3.5e12 cm), pairwise and coupled, each member's own
+     K(T) and U(T) rows (their host ms logged): each member against
+     run_stardis of that model at rtol 1e-5, the stage-1 graph's replay
+     equal bit for bit to the eager stage on the same rows (both timed),
+     atmospheres/s beside the same batch without molecules; a molecule
+     SpectralService serving 3800, 4200 and 4500 K (the plan at 3800 K)
+     against run_stardis at 1e-5, its synthesize_batch against run_batch
+     at 1e-6; a two-chunk molecule grid scan stopped and resumed, equal
+     bit for bit to a fresh one; the batch on a 'batch' mesh of 4 and a
+     2 x 2 mesh of cuda:0 x 4, bit for bit the unsharded batch; a
+     4-giant molecule batch differentiated (10k + 2k lines), pairwise
+     and coupled: each member's float64 gradient row against the
+     all-plain path at 1e-9, the float32 main path logged.
 
 The kernels build in parallel (one nvcc per source).  The last line of
 standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 the line before it is the card's name and power limit, and the line
 before that holds each kernel's launches (summed over the main paths of
-phases 5, 7-12, 13, 14, 15, 16, 17 and 18; the CLI and phase 17's compile-cache
+phases 5, 7-12, 13, 14, 15, 16, 17, 18 and 19; the CLI and phase 17's compile-cache
 children run in processes of their own and are not counted), error, times and bound (the larger of the operations
 over the float32 peak and the bytes over the memory rate of an H100 SXM,
 from this run's inputs); every entry also holds yardstick_bound_ms, the
@@ -324,6 +341,14 @@ RANGE_SEGMENTS = 3
 MESH_SHARDS = 4
 SERVE_TEFFS = (5777.0, 6300.0, 9000.0)
 SERVE_GIANT_TEFF = 4200.0
+# phase 19: the cool giants with molecules at the giant's full width, as a
+# batch (Teff and radius evenly spaced), served, scanned, on meshes and
+# differentiated (MOL_GRAD_MODELS of them, at the plain check's line counts)
+MOL_BATCH = 8
+MOL_BATCH_TEFF = (3600.0, 4400.0)
+MOL_BATCH_RADIUS = (1.5e12, 3.5e12)
+MOL_SERVE_TEFFS = (3800.0, 4200.0, 4500.0)
+MOL_GRAD_MODELS = 4
 # phase 18: the examples of examples/torch, run through main() at their
 # script sizes
 EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "torch")
@@ -3438,6 +3463,239 @@ def main():
     except Exception as exc:  # noqa: BLE001
         failures.append(f"memory model phase 18: {exc!r}")
     log(f"phase 18 took {time.perf_counter() - t_phase18:.1f} s")
+
+    # --- 19. molecules on the batched, served, scanned and sharded paths -------
+    t_phase19 = time.perf_counter()
+    try:
+        from stardis_tpu_torch.base import read_stellar_model
+        from stardis_tpu_torch.grid import load_grid, synthesize_grid
+        from stardis_tpu_torch.parallel.batch import captured_stage1, make_batch, run_batch
+        from stardis_tpu_torch.parallel.sharding import Mesh, make_batch_nu_mesh
+        from stardis_tpu_torch.serving import SpectralService
+
+        def same_bits(label, ours, ref):
+            same = (torch.equal(ours, ref) if torch.is_tensor(ours)
+                    else bool(np.array_equal(ours, ref)))
+            log(f"phase 19 {label}: equal bit for bit: {same}")
+            if not same:
+                failures.append(f"phase 19 {label}: not equal bit for bit")
+
+        def members_vs_runs(label, f, cfg, m_paths, adata, bound=1e-5):
+            worst = 0.0
+            for i, path in enumerate(m_paths):
+                cfg_i = copy.deepcopy(cfg)
+                cfg_i["input_model"]["fname"] = path
+                spec = run_stardis(cfg_i, lam_q, device="cuda", dtype=torch.float32,
+                                   atom_data=adata).spectrum_nu.value
+                member = f[i, -1].double().cpu().numpy() if torch.is_tensor(f) else f[i, -1]
+                worst = max(worst, float(np.abs(member / spec - 1.0).max()))
+            log(f"phase 19 {label}: members vs run_stardis of each model max rel err "
+                f"{worst:.3e} (bound {bound:g})")
+            if not worst <= bound:
+                failures.append(f"phase 19 {label}: member vs run_stardis rel err {worst:.3e}")
+
+        m_paths = []
+        for i, (teff, radius) in enumerate(zip(np.linspace(*MOL_BATCH_TEFF, MOL_BATCH),
+                                               np.linspace(*MOL_BATCH_RADIUS, MOL_BATCH))):
+            m_paths.append(os.path.join(tmp.name, f"mol_giant{i}.mod"))
+            write_marcs_file(m_paths[-1], **{**GIANT, "teff": float(teff),
+                                             "radius_cm": float(radius)})
+        m_adata = giant_atom_data(N_LINES, GIANT_MOL_LINES)
+        m_batches = {}
+        for molecules, coupled in ((True, False), (True, True), (False, False)):
+            label = ("coupled" if coupled else "pairwise") if molecules else "no molecules"
+            m_cfg = giant_config(m_paths[0], tables, coupled=coupled, molecules=molecules)
+            config, m_adata, m0 = parse_config_to_model(m_cfg, atom_data=m_adata)
+            m_models = [m0] + [read_stellar_model(config, m_adata, p) for p in m_paths[1:]]
+            mplan, mbatch = make_batch(config, m_adata, m_models, nus)
+            m_batches[label] = (m_cfg, config, m_models, mplan, mbatch)
+
+            def mol_run(**kw):
+                f = run_batch(mplan, mbatch, device=dev, dtype=torch.float32, **kw)
+                torch.cuda.synchronize()
+                return f
+
+            mol_run()  # warm-up: captures the batch's stage-1 graph
+            reset_counts()
+            f_m = mol_run()
+            launches = path_launches[f"molecule batch, {label}"] = read_counts()
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                mol_run()
+                walls.append(time.perf_counter() - t0)
+            timings = {}
+            mol_run(timings=timings)
+            wall = sorted(walls)[1]
+            n_sets = 2 if molecules else 1
+            log(f"phase 19 giant batch, {label}: {MOL_BATCH} spherical giants "
+                f"(Teff {MOL_BATCH_TEFF[0]:.0f}-{MOL_BATCH_TEFF[1]:.0f} K), "
+                f"{mplan.line_data.n_lines} atomic + "
+                f"{mplan.molecule_line_data.n_lines if molecules else 0} molecular lines in "
+                f"the window, {len(lams)} lambda x {len(mplan.weights)} theta, 3 file tables, "
+                f"float32: run_batch walls " + ", ".join(f"{w:.4f}" for w in walls)
+                + f" s; {MOL_BATCH / wall:.2f} atmospheres/s (median); launches {launches}; "
+                "stages (s, synchronised): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in timings.items()) + f" ({card})")
+            if not (launches["line_opacity"] == n_sets
+                    and launches["formal_solution_inward"] == 1
+                    and torch.isfinite(f_m).all() and (f_m[:, -1] > 0).all()):
+                failures.append(f"phase 19 giant batch, {label}: launches {launches}")
+            p_wall, busy, ops = device_busy(torch, mol_run)
+            log(f"phase 19 giant batch, {label}, profiled: wall {p_wall:.4f} s, device busy "
+                f"{busy * 1e3:.2f} ms ({busy / p_wall:.1%} of the wall), {ops} device ops")
+            if not molecules:
+                continue
+            mt = mplan.molecule_tables
+            rows_walls = []
+            for _ in range(7):
+                t0 = time.perf_counter()
+                mt.rows_at(mbatch.temperatures)
+                rows_walls.append(time.perf_counter() - t0)
+            rows_ms = sorted(rows_walls)[3] * 1e3
+            log(f"phase 19 giant batch, {label}: the members' K(T) and U(T) rows "
+                f"({mt.n_molecules} molecules x {MOL_BATCH} x {len(mplan.temperatures)} depths, "
+                f"host) {rows_ms:.4f} ms (median of 7)")
+            if not np.array_equal(mbatch.molecule_rows.k_density[0], mt.k_density):
+                failures.append(f"phase 19 {label}: the template's rows are not its tables")
+
+            # the graph's replay against the eager stage on the same rows
+            graph = captured_stage1(mplan, MOL_BATCH, torch.float32, dev)
+            consts = graph.consts
+            temps = torch.as_tensor(mbatch.temperatures, device=dev).float()
+            n_elem = torch.as_tensor(mbatch.n_elem, device=dev).float()
+            rows = tuple(torch.as_tensor(x, device=dev).float() for x in mbatch.molecule_rows)
+            flat = lambda out: list(out[0]) + [x for t in out[1].values() for x in t]  # noqa: E731
+            eager = flat(stage_plasma_and_lines(mplan, temps, n_elem, consts, rows))
+            with graph.replay(mbatch.temperatures, mbatch.n_elem,
+                              mbatch.molecule_rows) as out:
+                same = all(torch.equal(a, b) for a, b in zip(flat(out), eager))
+            log(f"phase 19 giant batch, {label}: stage-1 graph replay == eager call bit for "
+                f"bit ({len(eager)} tensors): {same}")
+            if not same:
+                failures.append(f"phase 19 giant batch, {label}: the replay differs")
+
+            def replay_once():
+                with graph.replay(mbatch.temperatures, mbatch.n_elem, mbatch.molecule_rows):
+                    pass
+
+            replay_ms = sync_ms(torch, replay_once, 5)
+            eager_ms = sync_ms(torch, lambda: stage_plasma_and_lines(mplan, temps, n_elem,
+                                                                     consts, rows), 5)
+            log(f"phase 19 giant batch, {label}: stage 1 replayed {replay_ms:.3f} ms, eager "
+                f"{eager_ms:.3f} ms (medians of 5, synchronised, the rows' copies included "
+                f"in the replay); graph pool {graph.pool_bytes / 1e6:.3f} MB")
+            del eager, out, temps, n_elem, rows, graph, consts
+            members_vs_runs(f"giant batch, {label}", f_m, m_cfg, m_paths, m_adata)
+            m_batches[label] += (f_m,)
+
+        # a giant service with molecules, serving other temperatures than its plan's
+        cfg_p, config_p, models_p, plan_p, batch_p, f_p = m_batches["pairwise"]
+        s_paths = []
+        for teff in MOL_SERVE_TEFFS:
+            s_paths.append(os.path.join(tmp.name, f"mol_serve{int(teff)}.mod"))
+            write_marcs_file(s_paths[-1], **{**GIANT, "teff": teff})
+        msvc = SpectralService(copy.deepcopy(cfg_p), lam_q, atom_data=m_adata)
+        s_models = [read_stellar_model(msvc.config, msvc.atom_data, p) for p in s_paths]
+        msvc.synthesize(s_models[0])  # builds the plan at the first request's model
+        reset_counts()
+        served = [msvc.synthesize(m) for m in s_models]
+        launches = path_launches["molecule serving"] = read_counts()
+        svc_walls = []
+        for m in s_models:
+            t0 = time.perf_counter()
+            msvc.synthesize(m)
+            svc_walls.append(time.perf_counter() - t0)
+        members_vs_runs("giant service " + "/".join(f"{t:.0f}" for t in MOL_SERVE_TEFFS)
+                        + " K", np.stack([o["F_nu"] for o in served]), cfg_p, s_paths, m_adata)
+        log(f"phase 19 giant service with molecules: warm request walls "
+            + ", ".join(f"{w:.4f}" for w in svc_walls) + f" s; launches {launches}; "
+            f"sigma re-interpolations {msvc.stats.sigma_reinterp_events}; graph pool "
+            f"{msvc._stage1.pool_bytes / 1e6:.3f} MB ({card})")
+        if not (launches["line_opacity"] == 2 * len(s_models)
+                and launches["formal_solution_inward"] == len(s_models)):
+            failures.append(f"phase 19 giant service: launches {launches}")
+        fb = msvc.synthesize_batch(models_p)
+        rel_b, _ = rel_err(torch.as_tensor(fb), f_p.cpu())
+        log(f"phase 19 giant service synthesize_batch of {MOL_BATCH} against run_batch: F_nu "
+            f"max rel err {rel_b:.3e} (bound 1e-6)")
+        if not rel_b <= 1e-6:
+            failures.append(f"phase 19 synthesize_batch rel err {rel_b:.3e}")
+        del msvc, served, fb
+
+        # a two-chunk molecule scan, stopped and resumed, against a fresh one
+        scan = os.path.join(tmp.name, "mol_scan")
+        fresh = os.path.join(tmp.name, "mol_scan_fresh")
+        kw = {"batch_size": MOL_BATCH // 2,
+              "labels": [{"teff": float(t)} for t in np.linspace(*MOL_BATCH_TEFF, MOL_BATCH)]}
+        r1 = synthesize_grid(config_p, m_adata, models_p, nus, scan, max_chunks=1, **kw)
+        r2 = synthesize_grid(config_p, m_adata, models_p, nus, scan, **kw)
+        reset_counts()
+        r3 = synthesize_grid(config_p, m_adata, models_p, nus, fresh, **kw)
+        launches = path_launches["molecule grid scan"] = read_counts()
+        resumed = load_grid(scan)[0]
+        same_bits(f"molecule grid scan stopped {r1['computed']}, resumed {r2['computed']} "
+                  "vs fresh", resumed, load_grid(fresh)[0])
+        rel_s, _ = rel_err(torch.as_tensor(resumed), f_p[:, -1].cpu())
+        log(f"phase 19 molecule grid scan against run_batch of all {MOL_BATCH}: max rel err "
+            f"{rel_s:.3e}; launches {launches}")
+        if not (r1["computed"] == 1 and r2["skipped"] == 1 and r2["done"]
+                and r3["computed"] == 2 and launches["line_opacity"] == 4):
+            failures.append(f"phase 19 molecule grid scan: {r1} {r2} {r3} {launches}")
+
+        # the batch on meshes of the card repeated four times
+        card0 = torch.device("cuda", 0)
+        for label, bmesh in (("'batch' mesh of 4", Mesh([card0] * 4, ("batch",))),
+                             ("2 x 2 mesh", make_batch_nu_mesh(2, 2, [card0] * 4))):
+            reset_counts()
+            f_mesh = run_batch(plan_p, batch_p, mesh=bmesh, dtype=torch.float32)
+            torch.cuda.synchronize()
+            launches = path_launches[f"molecule batch, {label}"] = read_counts()
+            log(f"phase 19 molecule batch on the {label}: launches {launches}")
+            same_bits(f"molecule batch on the {label} vs unsharded", f_mesh, f_p)
+        del f_mesh
+
+        # a differentiated 4-giant molecule batch, each member's gradient row
+        # against the all-plain path
+        for coupled in (False, True):
+            label = "coupled" if coupled else "pairwise"
+            g_cfg = giant_config(m_paths[0], tables, coupled=coupled)
+            g_adata = giant_atom_data(N_LINES_PLAIN_CHECK, GIANT_MOL_LINES_PLAIN_CHECK)
+            config, g_adata, g0 = parse_config_to_model(g_cfg, atom_data=g_adata)
+            g_models = [g0] + [read_stellar_model(config, g_adata, p)
+                               for p in m_paths[2::2][:MOL_GRAD_MODELS - 1]]
+            gplan, gbatch = make_batch(config, g_adata, g_models, nus)
+
+            def mol_grad(dtype, plain):
+                t = torch.as_tensor(gbatch.temperatures, device=dev).to(dtype)
+                t.requires_grad_()
+                f = run_batch(gplan, dataclasses.replace(gbatch, temperatures=t), device=dev,
+                              dtype=dtype, plain=plain)
+                return torch.autograd.grad(f[:, -1].sum(), t)[0]
+
+            reset_counts()
+            g32 = mol_grad(torch.float32, plain=False)
+            torch.cuda.synchronize()
+            launches = path_launches[f"molecule batch gradient, {label}"] = read_counts()
+            g_plain = mol_grad(torch.float64, plain=True)
+            scale = g_plain.abs().amax(dim=1)
+            err64 = (mol_grad(torch.float64, plain=False) - g_plain).abs().amax(dim=1) / scale
+            err32 = (g32.double() - g_plain).abs().amax(dim=1) / scale
+            log(f"phase 19 {MOL_GRAD_MODELS}-giant molecule batch gradient, {label} "
+                f"({gplan.line_data.n_lines} + {gplan.molecule_line_data.n_lines} lines): per "
+                "member against the all-plain path (float64), max |diff| / member max: float64 "
+                "kernel path " + ", ".join(f"{x:.3e}" for x in err64.tolist())
+                + " (bound 1e-9); float32 main path "
+                + ", ".join(f"{x:.3e}" for x in err32.tolist()) + f"; launches {launches}")
+            if not ((err64 <= 1e-9).all() and torch.isfinite(g32).all()
+                    and launches["line_opacity_grad"] == 2
+                    and launches["formal_solution_grad_inward"] == 1):
+                failures.append(f"phase 19 molecule batch gradient, {label}: float64 "
+                                f"{err64.tolist()}, launches {launches}")
+        del m_batches, f_p
+    except Exception as exc:  # noqa: BLE001
+        failures.append(f"molecule batch phase 19: {exc!r}")
+    log(f"phase 19 took {time.perf_counter() - t_phase19:.1f} s")
     tmp.cleanup()
 
     if failures:

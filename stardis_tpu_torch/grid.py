@@ -12,7 +12,9 @@ checks the identity (a different grid, config or edited model is an error),
 skips the chunks whose files load and cover the right models, and computes
 the rest: a scan stopped at chunk k resumes at chunk k and ends equal, bit
 for bit, to an uninterrupted scan, since each chunk is an independent
-computation.
+computation: with molecules too, since each chunk's members carry their own
+K(T) and U(T) rows (``collect_batch_inputs``), whichever model the scan's
+template plan was built from.
 
 The JAX scan pads its last chunk to ``batch_size`` models so that every
 chunk runs one compiled program; the port compiles nothing per shape and

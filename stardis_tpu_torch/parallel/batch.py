@@ -3,8 +3,12 @@
 The port of ``stardis_tpu/parallel/batch.py`` (BASELINE.json config 5: a
 Teff/logg grid of models).  All models of a batch share the config
 (opacity sources, line window, theta count), the depth-point count and the
-geometry kind; temperatures, densities, geometry, the spherical correction
-and the file-opacity cross-sections vary per model.
+geometry kind; temperatures, densities, geometry, the spherical correction,
+the file-opacity cross-sections and the molecular K(T) / U(T) rows vary per
+model.  The JAX package's batch gives every member the template model's
+molecular tables; the port evaluates each member's at its own temperatures
+(``MoleculeTables.rows_at``), as it does the file cross-sections, so a
+member equals that model's single run.
 
 Stage 1 (plasma and line quantities), the continuum and the source run
 once for the whole batch, its models folded into the depth columns (the
@@ -38,13 +42,13 @@ from ..pipeline import (
     elemental_densities,
     file_cross_sections,
     model_geometry,
-    not_ported,
     prepare_lines,
     resolve_device,
     spectrum_batch,
     stage_plasma_and_lines,
     validate_line_quants,
 )
+from ..plasma.molecules import MoleculeRows
 from ..radiation_field.solver import gauss_legendre_thetas
 from .sharding import Mesh, as_batch_nu, shard_tiles, visible_devices
 
@@ -63,6 +67,10 @@ class BatchInputs:
     # plan.file_sources entry (same order), or None without file sources:
     # they depend on each model's temperatures
     file_sigmas: tuple | None = None
+    # per-model molecular tables at each model's temperatures, K(T) and
+    # U(T), each [B, M, D] (``MoleculeTables.rows_at``), or None without
+    # molecules; host constants, which carry no gradient
+    molecule_rows: MoleculeRows | None = None
 
 
 def make_batch(config, atom_data, stellar_models, tracing_nus_hz):
@@ -103,26 +111,41 @@ def collect_batch_inputs(config, stellar_models, plan) -> BatchInputs:
             np.stack([sigmas[name] for sigmas in per_model])  # [B, D, N]
             for name, _sig, _dplan in plan.file_sources
         )
+    temps = np.stack(temps)
     return BatchInputs(
-        temperatures=np.stack(temps),
+        temperatures=temps,
         n_elem=np.stack(n_elem),
         ray_distances=np.stack(rays),
         photospheric_correction=np.asarray(corrs) if corrs else None,
         file_sigmas=file_sigmas,
+        molecule_rows=_molecule_rows(plan, temps),
     )
 
 
-def batch_from_reference(batch) -> BatchInputs:
+def _molecule_rows(plan, temps):
+    """Every member's K(T) and U(T) rows [B, M, D] in one evaluation, or
+    None for a plan without molecules."""
+    if plan.molecule_tables is None:
+        return None
+    return plan.molecule_tables.rows_at(temps)
+
+
+def batch_from_reference(batch, plan=None) -> BatchInputs:
     """The port's BatchInputs from a ``stardis_tpu.parallel.batch
-    .BatchInputs`` (its fields are NumPy arrays), in float64."""
+    .BatchInputs`` (its fields are NumPy arrays), in float64.  The JAX
+    batch has no molecular rows: for a plan with molecules (the port's,
+    ``pipeline.plan_from_reference`` with the atom data) they are evaluated
+    at the members' temperatures."""
     f64 = lambda x: None if x is None else np.asarray(x, dtype=np.float64)  # noqa: E731
+    temps = f64(batch.temperatures)
     return BatchInputs(
-        temperatures=f64(batch.temperatures),
+        temperatures=temps,
         n_elem=f64(batch.n_elem),
         ray_distances=f64(batch.ray_distances),
         photospheric_correction=f64(batch.photospheric_correction),
         file_sigmas=(tuple(f64(s) for s in batch.file_sigmas)
                      if batch.file_sigmas else None),
+        molecule_rows=None if plan is None else _molecule_rows(plan, temps),
     )
 
 
@@ -138,27 +161,26 @@ def run_batch(plan: SimulationPlan, batch: BatchInputs, mesh=None, device="cuda"
     first such call (``captured_stage1``), else eagerly.
     F_nu carries gradients to ``batch.temperatures`` / ``batch.n_elem``
     when they are tensors that require grad (Kernels 1b and 2b take the
-    whole batch in one launch each); the file-table cross-sections are host
-    arrays and, as in the JAX package, carry none.
+    whole batch in one launch each); the file-table cross-sections and the
+    molecular rows are host arrays and, as the JAX package's file tables
+    and molecular tables, carry none.
     mesh : a ``parallel.sharding.Mesh``.  A 1-D 'batch' mesh cuts the
         models into contiguous chunks of ceil(B / n) (the JAX package needs
         B divisible by n), one per entry, with stage 1 and the spectrum on
         that entry's device; a ('batch', 'nu') mesh also splits each chunk's
         wavelength grid over its row (``shard_batch_spectrum``), stage 1
-        running on each device of the row.  F_nu only, on the first device
-        of the mesh this process holds; ``device`` is then not used.
+        running on each device of the row, each row on its models'
+        molecular rows.  F_nu only, on the first device of the mesh this
+        process holds; ``device`` is then not used.
 
-    A plan with molecules raises: the JAX package's run_batch evaluates
-    every member's molecular densities with the template model's K(T) and
-    U(T) tables (ROADMAP Queue 3), and the port neither copies that nor
-    departs from it silently.
+    A plan with molecules takes each member's own K(T) and U(T) rows from
+    ``batch.molecule_rows`` (``collect_batch_inputs`` evaluates them), so
+    member b equals ``run_simulation`` of model b's own plan.
     """
-    if plan.molecule_tables is not None:
-        raise not_ported(
-            "run_batch with molecules (per-model molecular tables)",
-            "the JAX batch evaluates molecules at the template's temperatures",
-            queue=3,
-        )
+    if plan.molecule_tables is not None and batch.molecule_rows is None:
+        raise ValueError("a batch of a plan with molecules needs its members' "
+                         "molecule_rows (collect_batch_inputs, or "
+                         "batch_from_reference(batch, plan))")
     correction = batch.photospheric_correction
     if correction is None and plan.inward_rays:
         raise ValueError("a spherical batch needs its per-model corrections")
@@ -234,7 +256,8 @@ def _batch_stage1(plan, batch, device, dtype, timings):
         yield (consts, *_stage1(plan, batch, 0, n_models, consts, dtype, timings))
         return
     graph = captured_stage1(plan, n_models, dtype, device)
-    with graph.replay(batch.temperatures, batch.n_elem, timings) as (state, quants):
+    with graph.replay(batch.temperatures, batch.n_elem, batch.molecule_rows,
+                      timings=timings) as (state, quants):
         with _stage(timings, "validate", device):
             validate_line_quants(quants)
         yield graph.consts, state, quants
@@ -249,8 +272,10 @@ def _stage1(plan, batch, m0, m1, consts, dtype, timings=None):
         temps, n_elem = (x[m0:m1] if torch.is_tensor(x)
                          else torch.as_tensor(x[m0:m1], device=device)
                          for x in (batch.temperatures, batch.n_elem))
+        rows = batch.molecule_rows and tuple(
+            torch.as_tensor(x[m0:m1], device=device).to(dtype) for x in batch.molecule_rows)
         state, quants = stage_plasma_and_lines(plan, temps.to(device, dtype),
-                                               n_elem.to(device, dtype), consts)
+                                               n_elem.to(device, dtype), consts, rows)
     with _stage(timings, "validate", device):
         validate_line_quants(quants)
     return state, quants

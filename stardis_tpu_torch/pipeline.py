@@ -26,8 +26,7 @@ caller asks for the CPU; ``resolve_device`` raises when no GPU is present.
 
 The JAX package's window tiers (``line_window_tiers``) are a TPU schedule
 and have no counterpart: Kernel 1 takes the per-(line, depth) windows
-directly.  Branches the port does not take yet raise NotImplementedError
-naming their ROADMAP.md item.
+directly.
 """
 
 from __future__ import annotations
@@ -61,6 +60,7 @@ from .plasma.lte import DevicePlasmaTables, PlasmaState, device_tables, solve_lt
 from .plasma.molecules import (
     DeviceMoleculeTables,
     MoleculeLineData,
+    MoleculeSamples,
     MoleculeTables,
     build_molecule_tables,
     compute_molecule_line_quantities,
@@ -82,13 +82,6 @@ logger = logging.getLogger(__name__)
 
 #: speed of light in AA/s, for the file tables' wavelength grid
 C_AA_PER_S = 2.99792458e18
-
-
-def not_ported(what, roadmap_item, queue=1):
-    return NotImplementedError(
-        f"{what} is not ported to stardis_tpu_torch yet "
-        f"(ROADMAP.md Queue {queue}: {roadmap_item})"
-    )
 
 
 def resolve_device(device, caller):
@@ -287,11 +280,13 @@ def build_simulation_plan(config, atom_data, stellar_model, tracing_nus_hz):
     )
 
 
-def _copy_fields(cls, obj):
+def _copy_fields(cls, obj, **given):
     """A ``cls`` dataclass from the same-named attributes of ``obj``, its
-    float arrays in float64."""
-    out = {}
+    float arrays in float64; ``given`` fields are taken as they are."""
+    out = dict(given)
     for f in dataclasses.fields(cls):
+        if f.name in given:
+            continue
         v = getattr(obj, f.name)
         if isinstance(v, np.ndarray) and v.dtype.kind == "f":
             v = v.astype(np.float64)
@@ -299,12 +294,33 @@ def _copy_fields(cls, obj):
     return cls(**out)
 
 
-def plan_from_reference(plan) -> SimulationPlan:
+def _reference_samples(molecule_data, names):
+    """MoleculeSamples of ``names`` from a ``stardis_tpu`` atom data's
+    molecule_data (taken by duck typing: DataFrames of log10 K_p and U,
+    one row per molecule, one column per sample temperature)."""
+    eq, pf = molecule_data.equilibrium_constants, molecule_data.partition_functions
+    return MoleculeSamples.from_samples(
+        np.asarray(eq.columns.values, dtype=np.float64), eq.loc[list(names)].values,
+        np.asarray(pf.columns.values, dtype=np.float64), pf.loc[list(names)].values)
+
+
+def plan_from_reference(plan, atom_data=None) -> SimulationPlan:
     """The port's plan from a ``stardis_tpu.pipeline.SimulationPlan`` (taken
-    by duck typing: its fields are NumPy arrays), in float64."""
+    by duck typing: its fields are NumPy arrays), in float64.
+
+    atom_data : the ``stardis_tpu`` atom data the plan was built from; its
+        molecule_data gives the molecular tables their K(T) / U(T) samples,
+        which a batch or a served request at other temperatures evaluates
+        (``MoleculeTables.rows_at``).  Without it the tables carry none."""
     f64 = lambda x: np.asarray(x, dtype=np.float64)  # noqa: E731
     maybe = lambda cls, obj: None if obj is None else _copy_fields(cls, obj)  # noqa: E731
     correction = plan.photospheric_correction
+    molecule_tables = None
+    if plan.molecule_tables is not None:
+        mt = plan.molecule_tables
+        samples = (None if atom_data is None or atom_data.molecule_data is None
+                   else _reference_samples(atom_data.molecule_data, mt.names))
+        molecule_tables = _copy_fields(MoleculeTables, mt, samples=samples)
     return SimulationPlan(
         tracing_nus=f64(plan.tracing_nus),
         tables=_copy_fields(PlasmaTables, plan.tables),
@@ -331,7 +347,7 @@ def plan_from_reference(plan) -> SimulationPlan:
         d_nu=float(plan.d_nu),
         window_mode=str(plan.window_mode),
         window_epsilon=float(plan.window_epsilon),
-        molecule_tables=maybe(MoleculeTables, plan.molecule_tables),
+        molecule_tables=molecule_tables,
         molecule_line_data=maybe(MoleculeLineData, plan.molecule_line_data),
         molecules_coupled=bool(plan.molecules_coupled),
     )
@@ -457,7 +473,14 @@ def _split_models(x, n_models):
     return x.unflatten(-1, (n_models, -1)).movedim(-2, 0)
 
 
-def stage_plasma_and_lines(plan: SimulationPlan, temps, n_elem, consts):
+def _fold_columns(x, cols):
+    """[B, R, D] per-model rows -> [R, B * D] model-major columns, taken at
+    ``cols``: the layout stage 1 solves in."""
+    x = x.transpose(0, 1).clone(memory_format=torch.contiguous_format)
+    return x.view(x.shape[0], -1)[:, cols]
+
+
+def stage_plasma_and_lines(plan: SimulationPlan, temps, n_elem, consts, molecule_rows=None):
     """LTE solve + per-line quantities on the device of ``temps``, for a
     batch of models in one pass (the port of ``jax.vmap`` of the JAX
     package's stage 1).
@@ -468,6 +491,11 @@ def stage_plasma_and_lines(plan: SimulationPlan, temps, n_elem, consts):
         tables and each line set's per-line columns, so the stage uploads
         nothing and syncs nothing with the host (a CUDA graph can capture
         it: ``CapturedStage1``)
+    molecule_rows : (K(T), U(T)) tensors of temps' device and dtype,
+        [B, M, D] (or [M, D]): each model's molecular tables at its own
+        temperatures (``MoleculeTables.rows_at``).  Without them the stage
+        reads the plan's tables (``consts.molecules``), which hold the plan
+        model's; a batch of B > 1 models with molecular lines needs them.
     Returns (state, quants): the PlasmaState with the leading model axis
     [B, ...] (none for one model), and quants mapping "atomic" /
     "molecular" to the (alpha, gamma, doppler) triple of that line set,
@@ -479,27 +507,22 @@ def stage_plasma_and_lines(plan: SimulationPlan, temps, n_elem, consts):
     planes.  The columns are padded to a multiple of COLUMN_BLOCK, so
     that every one of them takes the same path through the CPU's
     vectorised loops (which round a tail of columns otherwise, in another
-    order), and a model's results have the same bits in any batch.  A batch with molecules raises: the plan's molecular tables
-    hold its own model's K(T) and U(T) (ROADMAP.md Queue 3).
+    order), and a model's results have the same bits in any batch.  The
+    molecular rows are folded into the same columns.
     """
     single = temps.ndim == 1
     if single:
         temps, n_elem = temps[None], n_elem[None]
+        if molecule_rows is not None:
+            molecule_rows = tuple(x[None] for x in molecule_rows)
     n_models = temps.shape[0]
-    if n_models > 1 and plan.molecule_tables is not None:
-        raise not_ported(
-            "stage 1 of a batch with molecules (per-model molecular tables)",
-            "the JAX batch evaluates molecules at the template's temperatures",
-            queue=3,
-        )
     # model-major columns: column b * D + d is depth d of model b, padded
     # with copies of the last one to a multiple of COLUMN_BLOCK
     t = temps.reshape(-1)
     n_cols = t.shape[0]
     cols = padded_columns(n_cols, t.device)
     t = t[cols]
-    n_elem = n_elem.transpose(0, 1).clone(memory_format=torch.contiguous_format)
-    state = solve_lte(t, n_elem.view(n_elem.shape[0], -1)[:, cols], consts.tables)
+    state = solve_lte(t, _fold_columns(n_elem, cols), consts.tables)
     quants = {}
     if "atomic" in consts.line_columns:
         quants["atomic"] = compute_line_quantities(
@@ -511,10 +534,20 @@ def stage_plasma_and_lines(plan: SimulationPlan, temps, n_elem, consts):
             use_vald_broadening=plan.use_vald_broadening,
         )
     if "molecular" in consts.line_columns:
-        molecules = consts.molecules  # [M, D] tables of the plan's one model
+        molecules = consts.molecules
+        if molecule_rows is not None:
+            k, u_mol = (_fold_columns(x, cols) for x in molecule_rows)
+        elif n_models == 1:  # the plan's [M, D] tables, of its own model
+            k, u_mol = molecules.k[:, cols], molecules.u_mol[:, cols]
+        else:
+            raise ValueError(
+                f"stage 1 of {n_models} models with molecular lines needs each model's "
+                "molecule_rows (MoleculeTables.rows_at of its temperatures): the plan's "
+                "tables hold its own model's K(T) and U(T)"
+            )
         quants["molecular"] = compute_molecule_line_quantities(
             consts.line_columns["molecular"],
-            molecules._replace(k=molecules.k[:, cols], u_mol=molecules.u_mol[:, cols]),
+            molecules._replace(k=k, u_mol=u_mol),
             state,
             t,
             plan.microturbulence_cgs,
@@ -543,7 +576,8 @@ class CapturedStage1:
     ``SpectralService``).
 
     The graph reads the plan's DeviceConstants (``consts``, held here with
-    the plan) and two static input buffers; its outputs are fixed tensors
+    the plan) and static input buffers: the temperatures and densities, and
+    with molecular lines each model's K(T) and U(T) rows; its outputs are fixed tensors
     of its private memory pool (``pool_bytes``), overwritten by each
     replay.  ``replay`` copies the inputs in and yields the outputs under
     the graph's own lock, so the caller consumes them (validates them,
@@ -567,17 +601,26 @@ class CapturedStage1:
         self._n_elem = torch.empty(lead + plan.n_elem.shape, dtype=dtype, device=device)
         self._temps.copy_(torch.as_tensor(plan.temperatures))
         self._n_elem.copy_(torch.as_tensor(plan.n_elem))
+        self._rows = None
+        if "molecular" in consts.line_columns:
+            mt = plan.molecule_tables
+            self._rows = tuple(
+                torch.empty(lead + x.shape, dtype=dtype, device=device).copy_(
+                    torch.as_tensor(x))
+                for x in (mt.k_density, mt.partition_function))
         self._lock = threading.Lock()
         with torch.no_grad(), torch.cuda.device(device):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
                 for _ in range(CAPTURE_WARMUP):
-                    stage_plasma_and_lines(plan, self._temps, self._n_elem, consts)
+                    stage_plasma_and_lines(plan, self._temps, self._n_elem, consts,
+                                           self._rows)
             torch.cuda.current_stream().wait_stream(side)
             self._graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self._graph, capture_error_mode="thread_local"):
-                self._out = stage_plasma_and_lines(plan, self._temps, self._n_elem, consts)
+                self._out = stage_plasma_and_lines(plan, self._temps, self._n_elem, consts,
+                                                   self._rows)
             torch.cuda.synchronize()
         pool = tuple(self._graph.pool())
         segments = [seg for seg in torch.cuda.memory_snapshot()
@@ -591,16 +634,23 @@ class CapturedStage1:
         memory.register_pool(self)
 
     @contextmanager
-    def replay(self, temps, n_elem, timings=None):
-        """Replay on ``temps`` ([B, D], or [D]) and ``n_elem`` (host arrays
-        or tensors, copied into the static buffers); yields (state, quants)
+    def replay(self, temps, n_elem, molecule_rows=None, timings=None):
+        """Replay on ``temps`` ([B, D], or [D]), ``n_elem`` and, for a plan
+        with molecular lines, ``molecule_rows`` (K(T) and U(T), [B, M, D] or
+        [M, D]: ``MoleculeTables.rows_at`` of the temperatures); host arrays
+        or tensors, copied into the static buffers.  Yields (state, quants)
         as ``stage_plasma_and_lines`` returns them, valid inside the block
         only.  ``timings`` receives the wall time of the copies and the
         replay as "plasma_and_lines"."""
+        if self._rows is not None and molecule_rows is None:
+            raise ValueError("a captured stage 1 with molecular lines replays on each "
+                             "model's molecule_rows")
         with self._lock:
             with _stage(timings, "plasma_and_lines", self._temps.device), torch.no_grad():
                 self._temps.copy_(torch.as_tensor(temps))
                 self._n_elem.copy_(torch.as_tensor(n_elem))
+                for buf, rows in zip(self._rows or (), molecule_rows or ()):
+                    buf.copy_(torch.as_tensor(rows))
                 self._graph.replay()
             yield self._out
 

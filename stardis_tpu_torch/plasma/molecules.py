@@ -2,8 +2,11 @@
 ``stardis_tpu/plasma/molecules.py``).
 
 * The K(T) cubic-spline and U_mol(T) linear interpolations depend only on
-  the model temperatures, so they run on the host when the plan is built
-  (SciPy / NumPy), giving dense [molecule, depth] tables.
+  the model temperatures, so they run on the host (SciPy / NumPy), giving
+  dense [molecule, depth] tables: at the plan model's temperatures when
+  the plan is built, and at a batch member's or a served request's own
+  temperatures from the samples the plan keeps (``MoleculeTables.rows_at``,
+  one spline over every molecule, evaluated for all models at once).
 * The equilibrium densities (closed-form quadratics, or the opt-in coupled
   network) and the molecular line quantities run on the device from the
   plasma state.
@@ -48,6 +51,60 @@ def parse_molecular_ion(symbol: str):
     return z, charge
 
 
+class MoleculeRows(NamedTuple):
+    """K(T) and U(T) at given temperatures: [..., M, D] each, one leading
+    axis per axis of the temperatures before the depth axis ([M, D] for
+    one model, [B, M, D] for a batch)."""
+
+    k_density: np.ndarray  # number-density equilibrium constants [cm^-3]
+    partition_function: np.ndarray
+
+
+@dataclasses.dataclass
+class MoleculeSamples:
+    """The temperature-independent part of the molecular tables: one
+    cubic spline of log10 K_p [Pa] over every molecule (built once) and
+    the U(T) samples, evaluated at any temperatures by ``rows``."""
+
+    log_kp: object  # scipy CubicSpline over the [M, K] samples (axis=1)
+    partition_temperatures: np.ndarray  # [P] K, ascending
+    partition_functions: np.ndarray  # [M, P]
+
+    @classmethod
+    def from_samples(cls, equilibrium_temperatures, log_equilibrium_constants,
+                     partition_temperatures, partition_functions):
+        from scipy.interpolate import CubicSpline
+
+        return cls(
+            log_kp=CubicSpline(np.asarray(equilibrium_temperatures, dtype=float),
+                               np.asarray(log_equilibrium_constants, dtype=float),
+                               axis=1, extrapolate=True),
+            partition_temperatures=np.asarray(partition_temperatures, dtype=float),
+            partition_functions=np.asarray(partition_functions, dtype=float),
+        )
+
+    def rows(self, temperatures) -> MoleculeRows:
+        """K(T) and U(T) of every molecule at ``temperatures`` ([D], or
+        [B, D] for a batch), in one evaluation: the spline, and the linear
+        interpolation of U as ``np.interp`` computes it (its slope form,
+        clamped to the end samples outside them), so a model's rows have
+        the same bits in any batch and equal one ``np.interp`` per
+        molecule."""
+        temps = np.asarray(temperatures, dtype=float)
+        t = temps.reshape(-1)
+        k = (10.0 ** self.log_kp(t)) * PA_TO_CGS / (K_B_CGS * t)  # [M, n]
+        xp, fp = self.partition_temperatures, self.partition_functions
+        j = np.clip(np.searchsorted(xp, t, side="right") - 1, 0, len(xp) - 2)
+        slopes = (fp[:, 1:] - fp[:, :-1]) / (xp[1:] - xp[:-1])
+        u = slopes[:, j] * (t - xp[j]) + fp[:, j]
+        u = np.where(t >= xp[-1], fp[:, -1:], np.where(t < xp[0], fp[:, :1], u))
+
+        def lead(x):  # [M, ..., D] -> [..., M, D]
+            return np.moveaxis(x.reshape(x.shape[:1] + temps.shape), 0, -2)
+
+        return MoleculeRows(lead(k), lead(u))
+
+
 @dataclasses.dataclass
 class MoleculeTables:
     """Host-prepared molecular data for a fixed temperature grid."""
@@ -60,6 +117,9 @@ class MoleculeTables:
     partition_function: np.ndarray  # [M, D]
     mass: np.ndarray  # [M] g (sum of constituent masses)
     included: np.ndarray  # [M] bool (False -> zero density)
+    # K(T) and U(T) at other temperatures (a batch member's, a served
+    # request's); None for tables carried over without their samples
+    samples: MoleculeSamples | None = None
 
     @property
     def n_molecules(self):
@@ -68,11 +128,22 @@ class MoleculeTables:
     def index_of(self, name):
         return self.names.index(name)
 
+    def rows_at(self, temperatures) -> MoleculeRows:
+        """K(T) and U(T) at ``temperatures`` ([D] or [B, D]): at the tables'
+        own temperatures, their k_density and partition_function bit for
+        bit."""
+        if self.samples is None:
+            raise ValueError(
+                "these molecular tables carry no K(T) / U(T) samples: build the plan "
+                "with build_simulation_plan, or pass the atom data to "
+                "pipeline.plan_from_reference"
+            )
+        return self.samples.rows(temperatures)
+
 
 def build_molecule_tables(atom_data, tables, temperatures) -> MoleculeTables:
-    """Interpolate the K(T) and U(T) tables onto the model temperatures."""
-    from scipy.interpolate import CubicSpline
-
+    """Interpolate the K(T) and U(T) tables onto the model temperatures;
+    the tables keep their samples (``MoleculeTables.rows_at``)."""
     md = atom_data.molecule_data
     if md is None:
         raise ValueError(
@@ -80,9 +151,12 @@ def build_molecule_tables(atom_data, tables, temperatures) -> MoleculeTables:
             "tables (equilibrium constants, partition functions, "
             "dissociation energies)."
         )
-    temps = np.asarray(temperatures, dtype=float)
+    samples = MoleculeSamples.from_samples(
+        md.equilibrium_temperatures, md.log_equilibrium_constants,
+        md.partition_temperatures, md.partition_functions)
+    rows = samples.rows(temperatures)
 
-    names, i1, i2, homo, kk, uu, mass, included = [], [], [], [], [], [], [], []
+    names, i1, i2, homo, mass, included = [], [], [], [], [], []
     for m, molecule in enumerate(md.names):
         names.append(molecule)
         ok = True
@@ -109,19 +183,9 @@ def build_molecule_tables(atom_data, tables, temperatures) -> MoleculeTables:
                 )
                 ok = False
 
-        spline = CubicSpline(
-            md.equilibrium_temperatures, md.log_equilibrium_constants[m],
-            extrapolate=True,
-        )
-        log_kp = spline(temps)
-        k_n = (10.0**log_kp) * PA_TO_CGS / (K_B_CGS * temps)
-        u_mol = np.interp(temps, md.partition_temperatures, md.partition_functions[m])
-
         i1.append(slot1)
         i2.append(slot2)
         homo.append(ok and (z1 == z2 and c1 == c2))
-        kk.append(k_n)
-        uu.append(u_mol)
         m1 = float(atom_data.mass_of([z1])[0]) if ok else 0.0
         m2 = float(atom_data.mass_of([z2])[0]) if ok else 0.0
         mass.append(m1 + m2)
@@ -132,10 +196,11 @@ def build_molecule_tables(atom_data, tables, temperatures) -> MoleculeTables:
         ion1_slot=np.asarray(i1, dtype=np.int64),
         ion2_slot=np.asarray(i2, dtype=np.int64),
         homonuclear=np.asarray(homo, dtype=bool),
-        k_density=np.asarray(kk),
-        partition_function=np.asarray(uu),
+        k_density=rows.k_density,
+        partition_function=rows.partition_function,
         mass=np.asarray(mass),
         included=np.asarray(included, dtype=bool),
+        samples=samples,
     )
 
 

@@ -13,14 +13,16 @@ and the depth count:
   and ray geometry, and its per-(line, depth) quantities come from its own
   stage 1;
 * requests are held to the plan: depth count, geometry kind and
-  microturbulence must match or the request raises; so must the
-  temperatures when the plan has molecules, whose K(T) and U(T) tables
-  are interpolated at the plan model's temperatures (the JAX service
-  serves other temperatures with them, as its run_batch does; ROADMAP.md
-  Queue 3);
+  microturbulence must match or the request raises;
 * with file opacities (``opacity.file``), a request whose temperatures
   differ from the plan's gets its [D, N] sigma tables re-interpolated on
   the host (counted in ``stats.sigma_reinterp_events``);
+* with molecules, a request whose temperatures differ from the plan's gets
+  its molecular K(T) and U(T) rows evaluated on the host from the plan's
+  samples (``MoleculeTables.rows_at``), as each batch member does: the
+  JAX service serves every request with the plan model's tables, so its
+  answer at other temperatures is not that model's run, where the port's
+  is;
 * spherical requests get their own chords, and the flux their own
   (r_outer / r_ref)^2 in place of the plan model's;
 * ``I_nus`` is returned when the config tracks it
@@ -67,7 +69,6 @@ from .pipeline import (
     device_constants,
     elemental_densities,
     model_geometry,
-    not_ported,
     resolve_device,
     stage_plasma_and_lines,
     stage_spectrum,
@@ -144,19 +145,11 @@ class SpectralService:
 
     def _check_request(self, stellar_model, plan, label="this request"):
         """The quantities baked into the plan (depth count, geometry kind,
-        microturbulence, and the temperatures of a plan with molecules)
-        must match the request's; returns its temperatures."""
+        microturbulence) must match the request's; returns its
+        temperatures."""
         temps = np.asarray(stellar_model.temperatures, dtype=np.float64)
         if len(temps) != len(plan.temperatures):
             raise ValueError("all served models must share the plan's depth count")
-        if plan.molecule_tables is not None and not np.allclose(
-                temps, plan.temperatures, rtol=1e-12):
-            raise not_ported(
-                "serving molecules at other temperatures than the plan's "
-                "(per-request molecular tables)",
-                "the JAX service evaluates molecules at the plan model's temperatures",
-                queue=3,
-            )
         if bool(stellar_model.spherical) != bool(plan.inward_rays):
             raise ValueError(
                 f"{label} geometry (spherical={bool(stellar_model.spherical)}) does not "
@@ -189,6 +182,17 @@ class SpectralService:
         return [sigma_file(lambdas_aa, temps, file_cfg[name], name)
                 for name, _sig, _dplan in plan.file_sources]
 
+    def _molecule_rows_for(self, temps):
+        """The request's molecular K(T) and U(T) rows [M, D]: the plan's
+        when the temperatures match, else evaluated at the request's; None
+        without molecules."""
+        mt = self._plan.molecule_tables
+        if mt is None:
+            return None
+        if np.allclose(temps, self._plan.temperatures, rtol=1e-12):
+            return mt.k_density, mt.partition_function
+        return mt.rows_at(temps)
+
     def synthesize(self, stellar_model):
         """Emergent spectrum of one atmosphere: a dict of host arrays, nus /
         lambdas / F_nu [D, N] / spectrum_nu / spectrum_lambda, and I_nus
@@ -199,15 +203,20 @@ class SpectralService:
         plan, consts = self._plan, self._consts
         temps_np = self._check_request(stellar_model, plan)
         sigmas = self._file_sigmas_for(temps_np)
+        rows = self._molecule_rows_for(temps_np)
         rays, _inward, correction = model_geometry(stellar_model, self._thetas)
 
         n_elem_np = elemental_densities(stellar_model, plan.tables)
         if self._stage1 is not None:
-            stage1 = self._stage1.replay(temps_np, n_elem_np)
+            stage1 = self._stage1.replay(temps_np, n_elem_np, rows)
         else:
+            def upload(x):
+                return torch.as_tensor(np.asarray(x, dtype=np.float64),
+                                       device=self._device).to(self._dtype)
+
             stage1 = nullcontext(stage_plasma_and_lines(
-                plan, torch.as_tensor(temps_np, device=self._device).to(self._dtype),
-                torch.as_tensor(n_elem_np, device=self._device).to(self._dtype), consts))
+                plan, upload(temps_np), upload(n_elem_np), consts,
+                None if rows is None else tuple(upload(x) for x in rows)))
         # a replayed graph's outputs are valid inside the block only
         with stage1 as (state, lq):
             validate_line_quants(lq)

@@ -11,7 +11,8 @@
 * molecules: the JAX run_batch evaluates every member's molecular
   densities with the template model's K(T) / U(T) tables.  The test shows
   that discrepancy (member 1 against the JAX single run of that model) and
-  holds the port to raising on a molecule plan rather than copying it.
+  holds the port's batch, whose members carry their own tables, to the
+  JAX single runs (more in ``tests/test_torch_molecule_batch.py``).
 """
 
 import numpy as np
@@ -170,8 +171,9 @@ def test_mixed_geometry_and_mesh_are_rejected(tmp_path):
 def test_molecule_batch_raises_and_jax_discrepancy(tmp_path):
     """Two cool models with one MgH line.  JAX run_batch hands member 1 the
     template's molecular tables; the measured max |dF/F| against the JAX
-    single run of model 1 is recorded in ROADMAP.md Queue 3.  The port
-    raises instead of copying or silently fixing it."""
+    single run of model 1 is recorded in ROADMAP.md Queue 3.  The port's
+    batch evaluates each member's tables at its own temperatures: each
+    member equals the JAX single run of its model at 1e-9."""
     members = [{"teff": 3800.0}, {"teff": 4600.0}]
     cfg, paths, _ = _grid(tmp_path, members, molecules=True, z_max=12)
     lams = np.arange(5160.0, 5170.0, 0.1)
@@ -186,10 +188,16 @@ def test_molecule_batch_raises_and_jax_discrepancy(tmp_path):
     plan, batch = jbatch.make_batch(config, adata, models, nus)
     assert plan.molecule_line_data.n_lines == 1
     f_batch = np.asarray(jbatch.run_batch(plan, batch))
-    f_single = np.asarray(run_simulation(build_simulation_plan(config, adata, models[1], nus))[0])
-    err = float(np.abs(f_batch[1, -1] / f_single[-1] - 1.0).max())
+    f_single = [np.asarray(run_simulation(build_simulation_plan(config, adata, m, nus))[0])
+                for m in models]
+    err = float(np.abs(f_batch[1, -1] / f_single[1][-1] - 1.0).max())
     print(f"JAX run_batch member 1 vs run_simulation: max |dF/F| = {err:.3e}")
     assert np.isfinite(err)
 
-    with pytest.raises(NotImplementedError, match="Queue 3"):
-        tbatch.run_batch(tpipe.plan_from_reference(plan), tbatch.batch_from_reference(batch))
+    tplan = tpipe.plan_from_reference(plan, adata)
+    ours = tbatch.run_batch(tplan, tbatch.batch_from_reference(batch, tplan), device="cpu",
+                            dtype=torch.float64).numpy()
+    for b, ref in enumerate(f_single):
+        np.testing.assert_allclose(ours[b], ref, rtol=RTOL, atol=1e-300, err_msg=f"member {b}")
+    ours_err = float(np.abs(ours[1, -1] / f_single[1][-1] - 1.0).max())
+    print(f"port run_batch member 1 vs JAX run_simulation: max |dF/F| = {ours_err:.3e}")

@@ -11,9 +11,10 @@ request by request, float64 on the CPU, at 1e-9.
 * spherical requests that differ from the template (chords and the
   photospheric correction), segmented;
 * synthesize_batch against the JAX service's;
-* the request guards raise the JAX errors; a plan with molecules refuses
-  other temperatures than its own; a mesh= that is not a 'nu' Mesh, bad
-  segment counts and a CUDA device without a GPU raise.
+* the request guards raise the JAX errors; a plan with molecules serves
+  other temperatures than its own equal to the JAX run_simulation of that
+  model; a mesh= that is not a 'nu' Mesh, bad segment counts and a CUDA
+  device without a GPU raise.
 """
 
 import numpy as np
@@ -26,7 +27,9 @@ import torch  # noqa: E402
 from stardis_tpu import parse_config_to_model as j_parse  # noqa: E402
 from stardis_tpu import units as ju  # noqa: E402
 from stardis_tpu.io.synthetic import write_marcs_file  # noqa: E402
+from stardis_tpu.pipeline import build_simulation_plan, run_simulation  # noqa: E402
 from stardis_tpu.serving import SpectralService as JService  # noqa: E402
+from stardis_tpu_torch import run_stardis  # noqa: E402
 from stardis_tpu_torch import units as tu  # noqa: E402
 from stardis_tpu_torch.base import read_stellar_model  # noqa: E402
 from stardis_tpu_torch.io.synthetic import write_opacity_tables  # noqa: E402
@@ -214,12 +217,26 @@ def test_guards_raise_as_jax(tmp_path, sun_setup):
     for svc, model in ((jsvc, jmodel), (tsvc, tmodel)):
         with pytest.raises(ValueError, match="microturbulence"):
             svc.synthesize(model)
+    # molecules at other temperatures than the plan's: the request's own
+    # K(T) / U(T) rows, so it equals the JAX run_simulation of that model
+    # (the JAX service would serve it the plan model's tables)
     mol_cfg = {**cfg, "opacity": {**cfg["opacity"], "line": {
         **cfg["opacity"]["line"], "include_molecules": True}}}
     msvc = SpectralService(mol_cfg, tlam, **CPU)
     msvc.synthesize(read_stellar_model(msvc.config, msvc.atom_data, paths["sun"]))
-    with pytest.raises(NotImplementedError, match="molecules"):
-        msvc.synthesize(read_stellar_model(msvc.config, msvc.atom_data, paths["warm"]))
+    ours = msvc.synthesize(read_stellar_model(msvc.config, msvc.atom_data, paths["warm"]))
+    mol_path = tmp_path / "mol.yml"
+    mol_path.write_text(yaml.safe_dump({**mol_cfg, "input_model": {
+        **mol_cfg["input_model"], "fname": paths["warm"]}}))
+    jconfig, jadata, jmodel = j_parse(str(mol_path))
+    jplan = build_simulation_plan(jconfig, jadata, jmodel, ours["nus"])
+    assert jplan.molecule_tables is not None
+    np.testing.assert_allclose(ours["F_nu"], np.asarray(run_simulation(jplan)[0]), rtol=RTOL,
+                               atol=1e-300)
+    single = run_stardis({**mol_cfg, "input_model": {**mol_cfg["input_model"],
+                                                     "fname": paths["warm"]}}, tlam, **CPU)
+    np.testing.assert_allclose(ours["spectrum_nu"], np.asarray(single.spectrum_nu.value),
+                               rtol=1e-12, atol=0)
     with pytest.raises(ValueError, match="mutually exclusive"):
         SpectralService(cfg, tlam, nu_segments=2, mesh=object(), **CPU)
     with pytest.raises(ValueError, match="'nu' parallel.sharding.Mesh"):

@@ -15,7 +15,8 @@ meshes of a repeated device (``["cpu"] * n``).
   and the port's unsharded batch at 1e-12; uneven chunks;
 * SpectralService(mesh=) against the JAX service on a 4-device mesh
   (``tests/test_serving.py``'s sharded test), and spherical requests with
-  re-interpolated file tables against the unsharded service;
+  re-interpolated file tables, without and with molecules, against the
+  unsharded service;
 * synthesize_grid(mesh=), stopped and resumed;
 * the raises: return_radiation_field and nu_segments with a mesh, the
   mesh constructors' sizes;
@@ -337,17 +338,21 @@ def test_service_mesh_matches_jax_service(tmp_path):
     assert tsvc.stats.requests == 2 and tsvc.stats.compiles == 1
 
 
-def test_service_mesh_spherical_requests_with_file_tables(tmp_path):
-    """Requests that differ from the plan's model: their own chords, their
-    own correction and re-interpolated sigma tables, through the shards."""
+def _service_mesh_spherical(tmp_path, molecules):
+    """A sharded and an unsharded service of the spherical giant with file
+    tables (and molecules with molecular lines when ``molecules``), serving
+    the plan's model and a hotter, larger one."""
     giant, other = str(tmp_path / "giant.mod"), str(tmp_path / "other.mod")
     write_marcs_file(giant, teff=4000.0, logg=2.0, spherical=True, radius_cm=2e12)
     write_marcs_file(other, teff=4200.0, logg=2.0, spherical=True, radius_cm=3e12)
     cfg = _giant_config(tmp_path, giant)
-    cfg["opacity"]["line"]["include_molecules"] = False
+    cfg["opacity"]["line"]["include_molecules"] = molecules
     cfg["result_options"]["return_radiation_field"] = False
-    atom_data = synth_linelist(build_builtin_atom_data(30, include_linelists=True), N_LINES,
-                               *LINE_RANGE)
+    atom_data = synth_linelist(build_builtin_atom_data(30, include_linelists=True,
+                                                       include_molecules=molecules),
+                               N_LINES, *LINE_RANGE)
+    if molecules:
+        synth_molecule_linelist(atom_data, N_MOL_LINES, *LINE_RANGE)
     lam = tu.Quantity(LAMS, tu.AA)
     sharded = SpectralService(copy.deepcopy(cfg), lam, mesh=cpu_mesh(3), atom_data=atom_data,
                               **CPU)
@@ -357,6 +362,25 @@ def test_service_mesh_spherical_requests_with_file_tables(tmp_path):
         ours, ref = sharded.synthesize(model), one.synthesize(model)
         np.testing.assert_allclose(ours["F_nu"], ref["F_nu"], rtol=1e-12, atol=0)
     assert sharded.stats.sigma_reinterp_events == one.stats.sigma_reinterp_events == 1
+    return cfg, atom_data, other, ours
+
+
+def test_service_mesh_spherical_requests_with_file_tables(tmp_path):
+    """Requests that differ from the plan's model: their own chords, their
+    own correction and re-interpolated sigma tables, through the shards."""
+    _service_mesh_spherical(tmp_path, molecules=False)
+
+
+def test_service_mesh_spherical_requests_with_molecules(tmp_path):
+    """The same with molecules and molecular lines: the other request's own
+    molecular rows, through the shards; it equals the port's run_stardis of
+    that model at 1e-12."""
+    cfg, atom_data, other, ours = _service_mesh_spherical(tmp_path, molecules=True)
+    cfg["input_model"]["fname"] = other
+    single = stardis_tpu_torch.run_stardis(cfg, tu.Quantity(LAMS, tu.AA), atom_data=atom_data,
+                                           **CPU)
+    np.testing.assert_allclose(ours["spectrum_nu"], np.asarray(single.spectrum_nu.value),
+                               rtol=1e-12, atol=0)
 
 
 # --- grid scans -------------------------------------------------------------------

@@ -14,7 +14,8 @@ over with ``plan_from_reference`` and ``batch_from_reference``.  Also:
   ``TorchDispatchMode`` count), and so does the continuum's one pass;
 * stage 1 calls neither ``torch.as_tensor`` nor ``torch.tensor``: it
   uploads nothing per call (the plan's DeviceConstants hold every per-line
-  column and table), molecules included;
+  column and table), molecules included; a batch of molecule models on
+  their own molecular rows equals each model's single stage 1 bit for bit;
 * the finiteness check names the model at fault; the captured graph
   (``pipeline.CapturedStage1``) refuses the CPU, and ``run_batch``'s cache
   of captured graphs keys, shares and evicts as the JAX package's
@@ -238,8 +239,10 @@ def molecules():
 @pytest.mark.parametrize("coupled", [False, True], ids=["pairwise", "coupled"])
 def test_molecules_upload_nothing_and_batches_raise(molecules, monkeypatch, coupled):
     """A single run with molecules reads its molecular tables and line
-    columns from the plan's DeviceConstants; a batch of them raises, as
-    run_batch does (ROADMAP.md Queue 3)."""
+    columns from the plan's DeviceConstants.  A batch of two models (the
+    plan's, and one 8 % cooler) on their own molecular rows equals each
+    model's single stage 1 on its own plan's tables bit for bit; a batch
+    without the rows raises, as it would give every member the plan's."""
     import dataclasses
 
     plan, consts = molecules
@@ -247,8 +250,24 @@ def test_molecules_upload_nothing_and_batches_raise(molecules, monkeypatch, coup
     temps, n_elem = torch.from_numpy(plan.temperatures), torch.from_numpy(plan.n_elem)
     ref = tpipe.stage_plasma_and_lines(plan, temps, n_elem, consts)
     assert set(ref[1]) == {"atomic", "molecular"}
-    with pytest.raises(NotImplementedError, match="batch with molecules"):
-        tpipe.stage_plasma_and_lines(plan, temps.repeat(2, 1), n_elem.repeat(2, 1, 1), consts)
+    both = torch.stack([temps, temps * 0.92])
+    with pytest.raises(ValueError, match="molecule_rows"):
+        tpipe.stage_plasma_and_lines(plan, both, n_elem.repeat(2, 1, 1), consts)
+    mt = plan.molecule_tables
+    rows = mt.rows_at(both.numpy())
+    batch = tpipe.stage_plasma_and_lines(
+        plan, both, n_elem.repeat(2, 1, 1), consts,
+        tuple(torch.from_numpy(np.ascontiguousarray(x)) for x in rows))
+    for b in range(2):
+        cool = dataclasses.replace(plan, temperatures=both[b].numpy(), molecule_tables=(
+            dataclasses.replace(mt, k_density=rows.k_density[b],
+                                partition_function=rows.partition_function[b])))
+        single = tpipe.stage_plasma_and_lines(
+            cool, both[b], n_elem, tpipe.device_constants(cool, torch.float64, "cpu"))
+        member = (PlasmaState(*(x[b] for x in batch[0])),
+                  {k: tuple(x[b] for x in t) for k, t in batch[1].items()})
+        for (name, o), (_, r) in zip(_fields(*member), _fields(*single)):
+            assert torch.equal(o, r), f"member {b}: {name}"
     _no_uploads(monkeypatch)
     ours = tpipe.stage_plasma_and_lines(plan, temps, n_elem, consts)
     for (name, o), (_, r) in zip(_fields(*ours), _fields(*ref)):
