@@ -50,6 +50,7 @@ from ..pipeline import (
 )
 from ..plasma.molecules import MoleculeRows
 from ..radiation_field.solver import gauss_legendre_thetas
+from ..util.profiling import span
 from .sharding import Mesh, as_batch_nu, shard_tiles, visible_devices
 
 
@@ -76,12 +77,30 @@ class BatchInputs:
 def make_batch(config, atom_data, stellar_models, tracing_nus_hz):
     """(template plan, BatchInputs) for a homogeneous model batch; the plan
     is built from the first model."""
-    plan = build_simulation_plan(config, atom_data, stellar_models[0], tracing_nus_hz)
+    with span("plan"):
+        plan = build_simulation_plan(config, atom_data, stellar_models[0], tracing_nus_hz)
     return plan, collect_batch_inputs(config, stellar_models, plan)
 
 
 def collect_batch_inputs(config, stellar_models, plan) -> BatchInputs:
-    """Per-model arrays for an existing template plan."""
+    """Per-model arrays for an existing template plan.  Traced, the call is
+    the root span "batch.collect_inputs", with "batch.member_inputs" (each
+    member's checks, densities and geometry), "batch.file_sigmas" (the
+    file tables at each member's temperatures) and "batch.molecule_rows"."""
+    with span("batch.collect_inputs"):
+        with span("batch.member_inputs"):
+            temps, n_elem, rays, corrs = _member_inputs(config, stellar_models, plan)
+        with span("batch.file_sigmas"):
+            file_sigmas = _file_sigmas(config, plan, temps)
+        with span("batch.molecule_rows"):
+            molecule_rows = _molecule_rows(plan, temps)
+    return BatchInputs(temps, n_elem, rays, corrs, file_sigmas, molecule_rows)
+
+
+def _member_inputs(config, stellar_models, plan):
+    """Each member held to the plan: temperatures [B, D], elemental
+    densities [B, E, D], rays [B, G, T] and spherical corrections [B] (or
+    None)."""
     thetas, _ = gauss_legendre_thetas(int(config.no_of_thetas))
     n_depth = len(plan.temperatures)
 
@@ -101,24 +120,22 @@ def collect_batch_inputs(config, stellar_models, plan) -> BatchInputs:
         rays.append(ray)
         if correction is not None:
             corrs.append(correction)
-    file_sigmas = None
-    if plan.file_sources:
-        per_model = [
-            dict(file_cross_sections(config.opacity.file, plan.tracing_nus, t))
-            for t in temps
-        ]
-        file_sigmas = tuple(
-            np.stack([sigmas[name] for sigmas in per_model])  # [B, D, N]
-            for name, _sig, _dplan in plan.file_sources
-        )
-    temps = np.stack(temps)
-    return BatchInputs(
-        temperatures=temps,
-        n_elem=np.stack(n_elem),
-        ray_distances=np.stack(rays),
-        photospheric_correction=np.asarray(corrs) if corrs else None,
-        file_sigmas=file_sigmas,
-        molecule_rows=_molecule_rows(plan, temps),
+    return (np.stack(temps), np.stack(n_elem), np.stack(rays),
+            np.asarray(corrs) if corrs else None)
+
+
+def _file_sigmas(config, plan, temps):
+    """Every member's file-opacity cross-sections, one [B, D, N] array per
+    plan.file_sources entry, or None for a plan without file sources."""
+    if not plan.file_sources:
+        return None
+    per_model = [
+        dict(file_cross_sections(config.opacity.file, plan.tracing_nus, t))
+        for t in temps
+    ]
+    return tuple(
+        np.stack([sigmas[name] for sigmas in per_model])  # [B, D, N]
+        for name, _sig, _dplan in plan.file_sources
     )
 
 
@@ -176,7 +193,13 @@ def run_batch(plan: SimulationPlan, batch: BatchInputs, mesh=None, device="cuda"
     A plan with molecules takes each member's own K(T) and U(T) rows from
     ``batch.molecule_rows`` (``collect_batch_inputs`` evaluates them), so
     member b equals ``run_simulation`` of model b's own plan.
+    Traced, the call is the root span "batch.run", over the stage spans.
     """
+    with span("batch.run"):
+        return _run_batch(plan, batch, mesh, device, dtype, plain, timings)
+
+
+def _run_batch(plan, batch, mesh, device, dtype, plain, timings):
     if plan.molecule_tables is not None and batch.molecule_rows is None:
         raise ValueError("a batch of a plan with molecules needs its members' "
                          "molecule_rows (collect_batch_inputs, or "

@@ -40,6 +40,7 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
+from . import _cuda
 from .constants import H_CGS
 from .opacities import continuum as cont
 from .opacities.file_tables import sigma_file
@@ -77,6 +78,7 @@ from .radiation_field.solver import (
     raytrace_plain,
 )
 from .util import memory
+from .util.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -359,18 +361,22 @@ def plan_from_reference(plan, atom_data=None) -> SimulationPlan:
 
 @contextmanager
 def _stage(timings, name, device):
-    """Record the wall time of a stage (synchronising the device at its
-    end) when ``timings`` is a dict; a no-op otherwise."""
+    """A stage: its span (``util.profiling.span``), and when ``timings`` is
+    a dict its wall time, the device synchronised at both edges (the span
+    then covers what the wall time does)."""
     if timings is None:
-        yield
+        with span(name):
+            yield
         return
-    if device.type == "cuda":
+    cuda = device.type == "cuda"
+    if cuda:
         torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    yield
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
+    with span(name):
+        t0 = time.perf_counter()
+        yield
+        if cuda:
+            torch.cuda.synchronize(device)
+        timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
 
 
 def host_array(tensor, what):
@@ -586,7 +592,11 @@ class CapturedStage1:
     (``util.memory.register_pool``) for as long as it lives.  A failed
     capture or replay raises; nothing falls back to the eager stage.  CUDA
     only, and without autograd: a differentiated run calls
-    ``stage_plasma_and_lines`` itself."""
+    ``stage_plasma_and_lines`` itself.  ``captures`` and ``replays`` count
+    both in the process (``util.profiling.counters``)."""
+
+    captures = 0
+    replays = 0
 
     def __init__(self, plan: SimulationPlan, consts: DeviceConstants, n_models=None):
         device = consts.tracing_nus.device
@@ -632,6 +642,7 @@ class CapturedStage1:
         self.pool_free_bytes = sum(seg["total_size"] - seg["allocated_size"]
                                    for seg in segments)
         memory.register_pool(self)
+        _cuda.count(CapturedStage1, "captures")
 
     @contextmanager
     def replay(self, temps, n_elem, molecule_rows=None, timings=None):
@@ -652,6 +663,7 @@ class CapturedStage1:
                 for buf, rows in zip(self._rows or (), molecule_rows or ()):
                     buf.copy_(torch.as_tensor(rows))
                 self._graph.replay()
+                _cuda.count(CapturedStage1, "replays")
             yield self._out
 
 

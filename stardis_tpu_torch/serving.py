@@ -42,13 +42,13 @@ The JAX service's refusal of file-table drift in a batch is never reached
 ``run_batch`` takes each member's own sigma tables.
 
 The JAX service freezes window tiers from its first request and compiles
-against them, re-tiering (``stats.retier_events``) when a request's windows
-outgrow them.  The port has no window tiers and compiles nothing per plan:
-Kernel 1 reads each request's exact windows, so ``tier_margin`` and
-``chunk`` are not carried and ``retier_events`` stays 0.  ``compiles``
-counts the plans built.  ``mesh=`` (a 1-D 'nu' ``parallel.sharding.Mesh``)
-serves each request through ``parallel.sharding.shard_spectrum``, with the
-request's own rays and sigma tables; stage 1 runs on ``device``.
+against them, re-tiering when a request's windows outgrow them.  The port
+has no window tiers and compiles nothing per plan: Kernel 1 reads each
+request's exact windows, so ``tier_margin`` and ``chunk`` are not carried.
+``compiles`` counts the plans built.  ``mesh=`` (a 1-D 'nu'
+``parallel.sharding.Mesh``) serves each request through
+``parallel.sharding.shard_spectrum``, with the request's own rays and sigma
+tables; stage 1 runs on ``device``.
 """
 
 from __future__ import annotations
@@ -76,6 +76,7 @@ from .pipeline import (
 )
 from .radiation_field.solver import gauss_legendre_thetas
 from .util.memory import segment_budget
+from .util.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -84,7 +85,6 @@ logger = logging.getLogger(__name__)
 class ServiceStats:
     requests: int = 0
     compiles: int = 0
-    retier_events: int = 0
     sigma_reinterp_events: int = 0
 
 
@@ -128,8 +128,9 @@ class SpectralService:
         self._batch_plan = None
 
     def _build(self, stellar_model):
-        self._plan = build_simulation_plan(self.config, self.atom_data, stellar_model,
-                                           self._nus)
+        with span("plan"):
+            self._plan = build_simulation_plan(self.config, self.atom_data, stellar_model,
+                                               self._nus)
         self._consts = device_constants(self._plan, self._dtype, self._device)
         # "auto" sizes the segments against the budget as it stood before
         # this service's graph, with the graph's pool as fixed overhead
@@ -196,17 +197,27 @@ class SpectralService:
     def synthesize(self, stellar_model):
         """Emergent spectrum of one atmosphere: a dict of host arrays, nus /
         lambdas / F_nu [D, N] / spectrum_nu / spectrum_lambda, and I_nus
-        [D, N, T] when tracked."""
+        [D, N, T] when tracked.  Traced, the request is the root span
+        "serve.request" (its spans share its id): "serve.inputs" (the
+        request's checks, sigma tables, molecular rows, geometry and
+        densities on the host), "plasma_and_lines" (the copies in and stage
+        1), "validate" (the host waits for the finiteness flags),
+        "line_opacity", "continuum", "formal_solution" (the host enqueues
+        them), "readback" (the host waits for F_nu and copies it)."""
+        with span("serve.request"):
+            return self._synthesize(stellar_model)
+
+    def _synthesize(self, stellar_model):
         self.stats.requests += 1
         if self._plan is None:
             self._build(stellar_model)
         plan, consts = self._plan, self._consts
-        temps_np = self._check_request(stellar_model, plan)
-        sigmas = self._file_sigmas_for(temps_np)
-        rows = self._molecule_rows_for(temps_np)
-        rays, _inward, correction = model_geometry(stellar_model, self._thetas)
-
-        n_elem_np = elemental_densities(stellar_model, plan.tables)
+        with span("serve.inputs"):
+            temps_np = self._check_request(stellar_model, plan)
+            sigmas = self._file_sigmas_for(temps_np)
+            rows = self._molecule_rows_for(temps_np)
+            rays, _inward, correction = model_geometry(stellar_model, self._thetas)
+            n_elem_np = elemental_densities(stellar_model, plan.tables)
         if self._stage1 is not None:
             stage1 = self._stage1.replay(temps_np, n_elem_np, rows)
         else:
@@ -214,14 +225,19 @@ class SpectralService:
                 return torch.as_tensor(np.asarray(x, dtype=np.float64),
                                        device=self._device).to(self._dtype)
 
-            stage1 = nullcontext(stage_plasma_and_lines(
-                plan, upload(temps_np), upload(n_elem_np), consts,
-                None if rows is None else tuple(upload(x) for x in rows)))
+            with span("plasma_and_lines"):
+                stage1 = nullcontext(stage_plasma_and_lines(
+                    plan, upload(temps_np), upload(n_elem_np), consts,
+                    None if rows is None else tuple(upload(x) for x in rows)))
         # a replayed graph's outputs are valid inside the block only
         with stage1 as (state, lq):
-            validate_line_quants(lq)
+            with span("validate"):
+                validate_line_quants(lq)
             f_nu, i_nus = self._spectrum(plan, consts, state, lq, rays, sigmas)
-        f_nu = f_nu.cpu().numpy()
+        with span("readback"):
+            f_nu = f_nu.cpu().numpy()
+            if plan.track_individual_intensities:
+                i_nus = i_nus.cpu().numpy()
         if correction is not None and plan.photospheric_correction:
             # the spectrum carries the plan model's (r_outer / r_ref)^2; swap
             # in this model's (F only: the reference corrects the flux, not
@@ -238,7 +254,7 @@ class SpectralService:
             "spectrum_lambda": surface * plan.tracing_nus / lambdas,
         }
         if plan.track_individual_intensities:
-            out["I_nus"] = i_nus.cpu().numpy()
+            out["I_nus"] = i_nus
         return out
 
     def _spectrum(self, plan, consts, state, lq, rays, sigmas):

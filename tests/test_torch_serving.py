@@ -120,7 +120,6 @@ def test_requests_match_jax_service(sun_setup, nu_segments):
     if nu_segments == 1:
         assert jsvc.stats.retier_events >= 1
     assert tsvc.stats.requests == 4 and tsvc.stats.compiles == 1
-    assert tsvc.stats.retier_events == 0
 
 
 @pytest.mark.parametrize("nu_segments", [1, 3])
