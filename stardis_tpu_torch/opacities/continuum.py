@@ -129,6 +129,18 @@ def calc_alpha_file(sigmas, species_density):
     return sigmas * species_density[:, None]
 
 
+def calc_alpha_file_rows(g, lo, w, scaled_density):
+    """File opacity from a table's rows (``file_tables.FileSigmaRows``):
+    scaled_density [D] x ((1 - w) g[lo] + w g[lo + 1]), with g [K, n] the
+    table interpolated at the grid's wavelengths, lo [D] int64 and w [D]
+    each depth's bracket and weight.  The per-depth factor of the format
+    is already in the density: for H- ff it is subnormal in float32."""
+    hi = (lo + 1).clamp_(max=g.shape[0] - 1)
+    lerp = (torch.index_select(g, 0, lo) * (1.0 - w)[:, None]
+            + torch.index_select(g, 0, hi) * w[:, None])
+    return scaled_density[:, None] * lerp
+
+
 # ----------------------------------------------------------------------
 # species-density resolution (reference opacities_solvers/util.py:111-166)
 # ----------------------------------------------------------------------

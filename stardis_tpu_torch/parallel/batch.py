@@ -40,7 +40,6 @@ from ..pipeline import (
     build_simulation_plan,
     device_constants,
     elemental_densities,
-    file_cross_sections,
     model_geometry,
     prepare_lines,
     resolve_device,
@@ -64,9 +63,11 @@ class BatchInputs:
     # per-model spherical flux correction (r_outer/r_ref)^2, or None for
     # plane-parallel batches
     photospheric_correction: np.ndarray | None = None  # [B]
-    # per-model file-opacity cross-sections, one [B, D, N] array per
-    # plan.file_sources entry (same order), or None without file sources:
-    # they depend on each model's temperatures
+    # per-model file-opacity cross-sections, one per plan.file_sources entry
+    # (same order), or None without file sources: they depend on each
+    # model's temperatures.  FileSigmaRows [B, D] of the plan's file tables
+    # (``collect_batch_inputs``; the device expands them), or dense
+    # [B, D, N] host arrays (``batch_from_reference``)
     file_sigmas: tuple | None = None
     # per-model molecular tables at each model's temperatures, K(T) and
     # U(T), each [B, M, D] (``MoleculeTables.rows_at``), or None without
@@ -85,13 +86,14 @@ def make_batch(config, atom_data, stellar_models, tracing_nus_hz):
 def collect_batch_inputs(config, stellar_models, plan) -> BatchInputs:
     """Per-model arrays for an existing template plan.  Traced, the call is
     the root span "batch.collect_inputs", with "batch.member_inputs" (each
-    member's checks, densities and geometry), "batch.file_sigmas" (the
-    file tables at each member's temperatures) and "batch.molecule_rows"."""
+    member's checks, densities and geometry), "batch.file_sigmas" (each
+    file table's rows at the members' temperatures) and
+    "batch.molecule_rows"."""
     with span("batch.collect_inputs"):
         with span("batch.member_inputs"):
             temps, n_elem, rays, corrs = _member_inputs(config, stellar_models, plan)
         with span("batch.file_sigmas"):
-            file_sigmas = _file_sigmas(config, plan, temps)
+            file_sigmas = _file_sigmas(plan, temps)
         with span("batch.molecule_rows"):
             molecule_rows = _molecule_rows(plan, temps)
     return BatchInputs(temps, n_elem, rays, corrs, file_sigmas, molecule_rows)
@@ -124,19 +126,16 @@ def _member_inputs(config, stellar_models, plan):
             np.asarray(corrs) if corrs else None)
 
 
-def _file_sigmas(config, plan, temps):
-    """Every member's file-opacity cross-sections, one [B, D, N] array per
-    plan.file_sources entry, or None for a plan without file sources."""
+def _file_sigmas(plan, temps):
+    """Every member's file-opacity cross-sections: per plan.file_tables
+    entry its FileSigmaRows [B, D], one host evaluation each, or None for
+    a plan without file sources."""
     if not plan.file_sources:
         return None
-    per_model = [
-        dict(file_cross_sections(config.opacity.file, plan.tracing_nus, t))
-        for t in temps
-    ]
-    return tuple(
-        np.stack([sigmas[name] for sigmas in per_model])  # [B, D, N]
-        for name, _sig, _dplan in plan.file_sources
-    )
+    if not plan.file_tables:
+        raise ValueError("a plan carried over from the JAX package has no file tables: "
+                         "take its batch's cross-sections with batch_from_reference")
+    return tuple(table.rows_at(temps) for table in plan.file_tables)
 
 
 def _molecule_rows(plan, temps):
@@ -180,7 +179,8 @@ def run_batch(plan: SimulationPlan, batch: BatchInputs, mesh=None, device="cuda"
     when they are tensors that require grad (Kernels 1b and 2b take the
     whole batch in one launch each); the file-table cross-sections and the
     molecular rows are host arrays and, as the JAX package's file tables
-    and molecular tables, carry none.
+    and molecular tables, carry none (the gradient reaches the file
+    opacities through the species densities only).
     mesh : a ``parallel.sharding.Mesh``.  A 1-D 'batch' mesh cuts the
         models into contiguous chunks of ceil(B / n) (the JAX package needs
         B divisible by n), one per entry, with stage 1 and the spectrum on

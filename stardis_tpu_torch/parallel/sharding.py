@@ -51,6 +51,7 @@ from ..pipeline import (
     device_constants,
     host_array,
     model_axis,
+    model_sigmas,
     prepare_lines,
     spectrum_batch,
 )
@@ -106,8 +107,9 @@ def segmented_spectrum(plan, state, line_quants, n_segments, consts, collect_opa
         in seconds (CUDA events; host times on the CPU)
     ray_distances : [G, T] host array replacing the plan's (a served
         request's geometry)
-    file_sigma_override : per plan.file_sources entry, a [D, N] host array
-        replacing the plan's sigmas (a served request's temperatures)
+    file_sigma_override : per plan.file_sources entry, FileSigmaRows [D] or
+        a [D, N] host array replacing the plan's sigmas (a served request's
+        temperatures)
     plain, timings : as ``pipeline.spectrum_batch``
 
     In the accuracy window mode the per-depth epsilon comes from a
@@ -132,8 +134,7 @@ def segmented_spectrum(plan, state, line_quants, n_segments, consts, collect_opa
     n_depth = len(plan.temperatures)
     ranges = segment_ranges(n_nu, n_segments)
     rays = None if ray_distances is None else np.asarray(ray_distances)[None]
-    sigmas = (None if file_sigma_override is None
-              else [np.asarray(s)[None] for s in file_sigma_override])
+    sigmas = model_sigmas(file_sigma_override)
     track = plan.track_individual_intensities
 
     with _stage(timings, "line_opacity", device):
@@ -477,7 +478,8 @@ def shard_batch_spectrum(plan, states, quants, mesh, consts, ray_distances=None,
         the plan's own
     ray_distances : [B, G, T] host array (default the plan's for each model)
     photospheric_correction : [B] host array, a number, or None
-    file_sigmas : per plan.file_sources entry, a [B, D, N] host array
+    file_sigmas : per plan.file_sources entry, FileSigmaRows [B, D] or a
+        [B, D, N] host array (each row takes its models' part)
     plain, timings : as ``spectrum_batch``
     shard_walls : optional list that receives each entry's device time in
         seconds (CUDA events; host times on the CPU), in mesh order
@@ -514,8 +516,9 @@ def shard_spectrum(plan, state, line_quants, mesh, consts, ray_distances=None,
     consts : the plan's DeviceConstants on the state's device
     ray_distances : [G, T] host array replacing the plan's (a served
         request's geometry)
-    file_sigma_override : per plan.file_sources entry, a [D, N] host array
-        replacing the plan's sigmas (split by range, not padded)
+    file_sigma_override : per plan.file_sources entry, FileSigmaRows [D] or
+        a [D, N] host array replacing the plan's sigmas (split by range, not
+        padded)
     plain, timings : as ``pipeline.spectrum_batch``
     shard_walls : optional list that receives each shard's device time in
         seconds (CUDA events; host times on the CPU), in mesh order
@@ -530,8 +533,7 @@ def shard_spectrum(plan, state, line_quants, mesh, consts, ray_distances=None,
         plan, [state], [line_quants], mesh, consts,
         ray_distances=None if ray_distances is None else np.asarray(ray_distances)[None],
         photospheric_correction=plan.photospheric_correction,
-        file_sigmas=(None if file_sigma_override is None
-                     else [np.asarray(s)[None] for s in file_sigma_override]),
+        file_sigmas=model_sigmas(file_sigma_override),
         plain=plain, timings=timings, shard_walls=shard_walls)
     if plan.track_individual_intensities:
         return out[0][0], out[1][0]

@@ -3,7 +3,8 @@
 The port of ``stardis_tpu/pipeline.py``, single device:
 
 1. ``build_simulation_plan`` — host phase (NumPy): config, model and atom
-   data -> plasma tables, file-opacity cross-sections, selected atomic and
+   data -> plasma tables, file-opacity tables (interpolated in wavelength
+   once; a model's cross-sections are rows of them), selected atomic and
    molecular lines, molecular tables, quadrature and geometry
    (plane-parallel or spherical).
 2. ``stage_plasma_and_lines`` — LTE solve + per-line alpha/gamma/Doppler
@@ -43,7 +44,7 @@ import torch
 from . import _cuda
 from .constants import H_CGS
 from .opacities import continuum as cont
-from .opacities.file_tables import sigma_file
+from .opacities.file_tables import FileSigmaRows, read_file_table
 from .opacities.line_kernel import (
     grid_min_step,
     line_center_indices,
@@ -115,7 +116,10 @@ class SimulationPlan:
     temperatures: np.ndarray  # [D]
     n_elem: np.ndarray  # [E, D]
     microturbulence_cgs: float
-    file_sources: list  # [(name, sigmas [D, N], SpeciesDensityPlan)]
+    # [(name, sigma, SpeciesDensityPlan)]: sigma at the plan's temperatures,
+    # FileSigmaRows [D] of the plan's file_tables entry (same order), or a
+    # dense [D, N] array (a plan carried over from the JAX package)
+    file_sources: list
     bf: BFSpecies | None
     ff_slots: np.ndarray  # [M]
     ff_ion_numbers: np.ndarray  # [M]
@@ -135,6 +139,9 @@ class SimulationPlan:
     molecule_tables: MoleculeTables | None = None
     molecule_line_data: MoleculeLineData | None = None
     molecules_coupled: bool = False
+    # FileTable per file_sources entry (same order); none for a plan carried
+    # over from the JAX package, whose file_sources hold dense arrays
+    file_tables: list = dataclasses.field(default_factory=list)
 
 
 def _cfg_dict(node):
@@ -160,15 +167,6 @@ def elemental_densities(stellar_model, tables):
     return comp.elemental_number_density[[row[int(z)] for z in tables.zs]]
 
 
-def file_cross_sections(opacity_files, tracing_nus, temperatures):
-    """[(name, sigma [D, N])] of the configured ``opacity.file`` tables."""
-    lambdas_aa = C_AA_PER_S / np.asarray(tracing_nus)
-    return [
-        (name, sigma_file(lambdas_aa, temperatures, fpath, name))
-        for name, fpath in _cfg_dict(opacity_files).items()
-    ]
-
-
 def build_simulation_plan(config, atom_data, stellar_model, tracing_nus_hz):
     """Host phase: MARCS models (plane-parallel or spherical), file,
     bf/ff/Rayleigh/Thomson continuum, TARDIS or VALD atomic lines,
@@ -179,9 +177,13 @@ def build_simulation_plan(config, atom_data, stellar_model, tracing_nus_hz):
     n_elem = elemental_densities(stellar_model, tables)
 
     opacity = config.opacity
+    # each opacity.file table read once and interpolated at the grid's
+    # wavelengths; the plan's sigma is its rows at the plan's temperatures
+    file_tables = [read_file_table(fpath, name, C_AA_PER_S / tracing_nus)
+                   for name, fpath in _cfg_dict(opacity.file).items()]
     file_sources = [
-        (name, sig, cont.plan_species_density(name, tables))
-        for name, sig in file_cross_sections(opacity.file, tracing_nus, temps)
+        (table.name, table.rows_at(temps), cont.plan_species_density(table.name, tables))
+        for table in file_tables
     ]
 
     # --- hydrogenic bf ------------------------------------------------
@@ -279,6 +281,7 @@ def build_simulation_plan(config, atom_data, stellar_model, tracing_nus_hz):
         molecule_tables=molecule_tables,
         molecule_line_data=molecule_line_data,
         molecules_coupled=bool(line_cfg.get("molecules_coupled", False)),
+        file_tables=file_tables,
     )
 
 
@@ -415,6 +418,9 @@ class DeviceConstants:
     molecules: DeviceMoleculeTables | None = None
     bf: tuple | None = None  # (level_flat [K] int64, cutoffs [K], coefficients [K])
     ff: tuple | None = None  # (slots [M] int64, ion numbers [M])
+    # per plan.file_tables entry, its g [K, N] (the table interpolated at
+    # the grid's wavelengths), which rows of file sigmas expand
+    file_tables: tuple = ()
 
 
 def device_constants(plan: SimulationPlan, dtype, device) -> DeviceConstants:
@@ -459,6 +465,7 @@ def device_constants(plan: SimulationPlan, dtype, device) -> DeviceConstants:
         molecules=molecules,
         bf=bf,
         ff=ff,
+        file_tables=tuple(_tensor(table.g, like) for table in plan.file_tables),
     )
 
 
@@ -723,20 +730,29 @@ def compute_continuum(plan: SimulationPlan, state, tracing_nus, consts, file_sig
     """All continuum sources -> dict of [D, n] tensors over ``tracing_nus``,
     per depth column: a batch passes its B * D columns (``column_state``).
 
-    file_sigmas: optional [D, N] host arrays, one per plan.file_sources
-    entry, replacing the plan's (a batch member's own temperatures).
+    file_sigmas: optional, one per plan.file_sources entry, replacing the
+    plan's (a batch member's own temperatures): FileSigmaRows of the depth
+    columns, which the device expands from the plan's file tables
+    (``consts.file_tables``), or dense [D, N] host arrays, copied to it.
     pixels: the columns of the global grid that ``tracing_nus`` holds; the
     file sigmas are cut to them.
-    consts: the plan's DeviceConstants (its bf and ff columns)."""
+    consts: the plan's DeviceConstants (its bf and ff columns, its file
+    tables)."""
     n_nu = tracing_nus.shape[0]
     t = state.t
     out = {}
     for i, (name, sig, dplan) in enumerate(plan.file_sources):
         density = cont.species_density(dplan, state, plan.tables)
         sig = sig if file_sigmas is None else file_sigmas[i]
+        repeats = t.shape[0] // len(sig)  # the plan's D columns for each of B models
+        if isinstance(sig, FileSigmaRows):
+            out[f"alpha_file_{name}"] = _alpha_file_rows(consts, i, sig, repeats, density,
+                                                         pixels)
+            continue
         sig = _tensor(np.asarray(sig)[:, pixels], t)
-        if sig.shape[0] != t.shape[0]:  # the plan's [D, n] for each of B models
-            sig = sig.repeat(t.shape[0] // sig.shape[0], 1)
+        _cuda.count(FileSigmaCounts, "uploads")
+        if repeats > 1:
+            sig = sig.repeat(repeats, 1)
         out[f"alpha_file_{name}"] = cont.calc_alpha_file(sig, density)
 
     if consts.bf is not None:
@@ -773,6 +789,42 @@ def compute_continuum(plan: SimulationPlan, state, tracing_nus, consts, file_sig
     return out
 
 
+class FileSigmaCounts:
+    """The continuum's file-opacity terms in the process
+    (``util.profiling.counters``): ``rows``, tables expanded on the device
+    from FileSigmaRows; ``uploads``, dense sigma arrays copied to it."""
+
+    rows = 0
+    uploads = 0
+
+
+def _alpha_file_rows(consts, i, rows, repeats, density, pixels):
+    """alpha_file [C, n] of plan.file_sources entry ``i`` from its rows of
+    the C depth columns (the plan's D, ``repeats`` times, for B models):
+    one copy of the rows to the device, the expansion there."""
+    if i >= len(consts.file_tables):
+        raise ValueError("rows of file sigmas need the plan's file tables; a plan "
+                         "carried over from the JAX package takes dense arrays")
+    packed = rows.packed()
+    packed = torch.as_tensor(np.tile(packed, repeats) if repeats > 1 else packed,
+                             device=density.device)
+    # the factor (1e-26 k_B T ~5e-39 for H- ff) is subnormal in float32:
+    # fold it into the density in float64, a normal number of the run's dtype
+    scaled = (density.double() * packed[2]).to(density.dtype)
+    _cuda.count(FileSigmaCounts, "rows")
+    return cont.calc_alpha_file_rows(consts.file_tables[i][:, pixels], packed[0].long(),
+                                     packed[1].to(density.dtype), scaled)
+
+
+def model_sigmas(file_sigmas):
+    """One model's file sigmas (per plan.file_sources entry, FileSigmaRows
+    [D] or a [D, N] array) with the model axis of a batch of one."""
+    if file_sigmas is None:
+        return None
+    return [s[None] if isinstance(s, FileSigmaRows) else np.asarray(s)[None]
+            for s in file_sigmas]
+
+
 def _stack(tensors):
     """torch.stack, without the copy for a batch of one."""
     return tensors[0][None] if len(tensors) == 1 else torch.stack(tensors)
@@ -785,11 +837,14 @@ def continuum_batch(plan: SimulationPlan, states, tracing_nus, consts, file_sigm
     B * D depth columns: dict of [B, D, n] tensors.
     states: a batched stage-1 state, or one per model (``model_axis``)
     consts: the plan's DeviceConstants
-    file_sigmas: per plan.file_sources entry, a [B, D, N] host array"""
+    file_sigmas: per plan.file_sources entry, FileSigmaRows [B, D] or a
+    [B, D, N] host array"""
     state, _ = model_axis(states)
     n_models, n_depth = state.t.shape
+    n_cols = n_models * n_depth
     sigmas = None if file_sigmas is None else [
-        np.asarray(sig).reshape(n_models * n_depth, -1) for sig in file_sigmas]
+        sig.reshape(n_cols) if isinstance(sig, FileSigmaRows)
+        else np.asarray(sig).reshape(n_cols, -1) for sig in file_sigmas]
     out = compute_continuum(plan, column_state(state), tracing_nus, consts, sigmas, pixels)
     return {key: val.view(n_models, n_depth, -1) for key, val in out.items()}
 
@@ -805,7 +860,8 @@ def accuracy_epsilon(plan, states, consts, file_sigmas=None, ranges=None):
     whole grid as one), keeping the minimum of each range's minimum: equal
     to the whole grid's (a minimum does not depend on the order), with one
     range's continuum on the device at a time.
-    file_sigmas : per plan.file_sources entry, a [B, D, N] host array."""
+    file_sigmas : per plan.file_sources entry, FileSigmaRows [B, D] or a
+        [B, D, N] host array."""
     epsilon = None
     for a, b in ranges or [(0, consts.grid.shape[0])]:
         total = None
@@ -865,7 +921,8 @@ def spectrum_batch(plan: SimulationPlan, states, lines, consts, ray_distances=No
     consts : the plan's DeviceConstants (``device_constants``)
     ray_distances : [B, G, T] host array; default the plan's, for each model
     photospheric_correction : [B] host array, a number, or None (none)
-    file_sigmas : per plan.file_sources entry, a [B, D, N] host array
+    file_sigmas : per plan.file_sources entry, FileSigmaRows [B, D] or a
+        [B, D, N] host array; default the plan's, for each model
     plain : run Kernel 2's plain torch version on any device (Kernel 1's
         follows ``prepare_lines(plain=)``): the reference the kernels are
         checked against
@@ -919,10 +976,10 @@ def stage_spectrum(plan: SimulationPlan, state, line_quants, consts, plain=False
     consts : the plan's DeviceConstants (``device_constants``)
     ray_distances : [G, T] host array replacing the plan's (a served
         request's own geometry)
-    file_sigmas : per plan.file_sources entry, a [D, N] host array
-        replacing the plan's (a served request's own temperatures)
+    file_sigmas : per plan.file_sources entry, FileSigmaRows [D] or a [D, N]
+        host array replacing the plan's (a served request's own temperatures)
     """
-    sigmas = None if file_sigmas is None else [np.asarray(s)[None] for s in file_sigmas]
+    sigmas = model_sigmas(file_sigmas)
     with _stage(timings, "line_opacity", state.t.device):
         lines = prepare_lines(plan, [state], [line_quants], consts, sigmas, plain)
     f_nu, total, opacities, i_nus = spectrum_batch(

@@ -15,8 +15,9 @@ and the depth count:
 * requests are held to the plan: depth count, geometry kind and
   microturbulence must match or the request raises;
 * with file opacities (``opacity.file``), a request whose temperatures
-  differ from the plan's gets its [D, N] sigma tables re-interpolated on
-  the host (counted in ``stats.sigma_reinterp_events``);
+  differ from the plan's gets its own rows of the plan's file tables
+  (``FileTable.rows_at``, counted in ``stats.sigma_reinterp_events``),
+  which the device expands;
 * with molecules, a request whose temperatures differ from the plan's gets
   its molecular K(T) and U(T) rows evaluated on the host from the plan's
   samples (``MoleculeTables.rows_at``), as each batch member does: the
@@ -168,20 +169,16 @@ class SpectralService:
         return temps
 
     def _file_sigmas_for(self, temps):
-        """The request's file-opacity sigma tables: the plan's when the
-        temperatures match, else re-interpolated on the host (counted)."""
+        """The request's file-opacity sigmas: the plan's when the
+        temperatures match, else the rows of the plan's file tables at the
+        request's temperatures (counted)."""
         plan = self._plan
         if not plan.file_sources:
             return None
         if np.allclose(temps, plan.temperatures, rtol=1e-12):
             return [sig for _name, sig, _dplan in plan.file_sources]
-        from .opacities.file_tables import sigma_file
-
         self.stats.sigma_reinterp_events += 1
-        lambdas_aa = C_AA_PER_S / plan.tracing_nus
-        file_cfg = self.config.opacity.file
-        return [sigma_file(lambdas_aa, temps, file_cfg[name], name)
-                for name, _sig, _dplan in plan.file_sources]
+        return [table.rows_at(temps) for table in plan.file_tables]
 
     def _molecule_rows_for(self, temps):
         """The request's molecular K(T) and U(T) rows [M, D]: the plan's

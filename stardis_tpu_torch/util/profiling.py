@@ -146,11 +146,13 @@ def counters():
     """The program's counters, read where they are kept: stage-1 graph
     captures and replays (``pipeline.CapturedStage1``), kernels built by
     ``nvcc`` in this process (``_cuda.BUILD_LOGS``), the kernel wrappers'
-    launch counters, and the spans dropped this session.  After warm-up a
-    capture or a build is work done again."""
+    launch counters, the continuum's file-opacity terms
+    (``pipeline.FileSigmaCounts``: tables expanded on the device from
+    rows, dense sigma arrays copied to it), and the spans dropped this
+    session.  After warm-up a capture or a build is work done again."""
     from .. import _cuda
     from ..opacities import line_kernel
-    from ..pipeline import CapturedStage1
+    from ..pipeline import CapturedStage1, FileSigmaCounts
     from ..radiation_field import solver
 
     k1 = line_kernel.accumulate_line_opacity_cuda
@@ -167,6 +169,8 @@ def counters():
         "formal_solution_inward_launches": k2.inward_launches,
         "formal_solution_grad_launches": k2b.launches,
         "formal_solution_grad_inward_launches": k2b.inward_launches,
+        "file_sigma_rows": FileSigmaCounts.rows,
+        "file_sigma_uploads": FileSigmaCounts.uploads,
         "spans_dropped": _TRACE.dropped,
     }
 

@@ -6,6 +6,13 @@
   batch carried over and from the port's own host phase;
 * each member against the port's single-model run of that model at 1e-12
   (the batch is the same code path with B > 1);
+* the port's own batch carries each file table's rows (``FileSigmaRows``:
+  a bracket, a weight and a factor per depth), which the device expands:
+  expanded on the host they equal the JAX batch's dense cross-sections at
+  1e-12; ``run_batch`` on them equals ``run_batch`` on the dense arrays, in
+  the reference and the accuracy window modes, unsharded and on a 2 x 2
+  mesh (rows cut by model chunk and pixel range), at 1e-12, and the
+  counters say which path ran;
 * mixed geometry is rejected, and so is a mesh that is not a
   ``parallel.sharding.Mesh`` (meshes: ``tests/test_torch_sharding.py``);
 * molecules: the JAX run_batch evaluates every member's molecular
@@ -14,6 +21,8 @@
   holds the port's batch, whose members carry their own tables, to the
   JAX single runs (more in ``tests/test_torch_molecule_batch.py``).
 """
+
+import dataclasses
 
 import numpy as np
 import pandas as pd
@@ -32,7 +41,10 @@ from stardis_tpu_torch import pipeline as tpipe  # noqa: E402
 from stardis_tpu_torch.base import parse_config_to_model as t_parse  # noqa: E402
 from stardis_tpu_torch.base import read_stellar_model as t_read_model  # noqa: E402
 from stardis_tpu_torch.io.synthetic import write_opacity_tables  # noqa: E402
+from stardis_tpu_torch.opacities.file_tables import FileSigmaRows  # noqa: E402
 from stardis_tpu_torch.parallel import batch as tbatch  # noqa: E402
+from stardis_tpu_torch.parallel.sharding import Mesh  # noqa: E402
+from stardis_tpu_torch.util import profiling  # noqa: E402
 
 RTOL = 1e-9
 
@@ -129,8 +141,12 @@ def test_port_host_phase_builds_the_same_batch(grid):
             np.testing.assert_allclose(a, b, rtol=1e-12, err_msg=field)
     np.testing.assert_allclose(tb.n_elem, ref.n_elem, rtol=1e-12)
     # each tuple follows its plan's file_sources order (YAML sorts the JAX
-    # config's keys): compare by source name
-    ours = {name: sig for (name, *_), sig in zip(tplan.file_sources, tb.file_sigmas or ())}
+    # config's keys): compare by source name; the port's are rows, expanded
+    # here on the host
+    assert all(isinstance(sig, FileSigmaRows) and sig.lo.shape == (3, 56)
+               for sig in tb.file_sigmas or ())
+    ours = {name: sig.dense() for (name, *_), sig in zip(tplan.file_sources,
+                                                          tb.file_sigmas or ())}
     theirs = {name: sig for (name, *_), sig in zip(plan.file_sources, ref.file_sigmas or ())}
     assert ours.keys() == theirs.keys()
     for name in ours:
@@ -138,6 +154,96 @@ def test_port_host_phase_builds_the_same_batch(grid):
     np.testing.assert_allclose(tbatch.run_batch(tplan, tb, device="cpu", dtype=torch.float64).numpy(), f_ref,
                                rtol=RTOL,
                                atol=1e-300)
+
+
+def _file_counts():
+    c = profiling.counters()
+    return c["file_sigma_rows"], c["file_sigma_uploads"]
+
+
+@pytest.mark.parametrize("mode", ["reference", "accuracy"])
+@pytest.mark.parametrize("sharded", [False, True], ids=["unsharded", "mesh2x2"])
+def test_file_sigma_rows_match_dense_arrays(grid, mode, sharded):
+    """run_batch on the port's rows equals run_batch on the same cross-
+    sections as dense host arrays at 1e-12: unsharded, and on a 2 x 2
+    ('batch', 'nu') mesh of the CPU, whose tiles cut the rows by model
+    chunk and by pixel range; in the accuracy window mode the continuum
+    pass that sets each depth's threshold takes them too.  Rows are
+    expanded on the device and copied to it by nobody else: the counters
+    see one expansion per table and continuum pass, and no upload."""
+    cfg, paths, nus, _plan, _batch, _f_ref = grid
+    config, adata, model0 = t_parse(dict(cfg))
+    models = [model0] + [t_read_model(config, adata, p) for p in paths[1:]]
+    tplan, tb = tbatch.make_batch(config, adata, models, nus)
+    if not tplan.file_sources:
+        assert tb.file_sigmas is None and tplan.file_tables == []
+        return
+    tplan = dataclasses.replace(tplan, window_mode=mode)
+    dense = dataclasses.replace(tb, file_sigmas=tuple(s.dense() for s in tb.file_sigmas))
+    mesh = Mesh(np.array(["cpu"] * 4).reshape(2, 2), ("batch", "nu")) if sharded else None
+    rows0, uploads0 = _file_counts()
+    f = tbatch.run_batch(tplan, tb, mesh=mesh, device="cpu", dtype=torch.float64)
+    rows1, uploads1 = _file_counts()
+    f_dense = tbatch.run_batch(tplan, dense, mesh=mesh, device="cpu", dtype=torch.float64)
+    rows2, uploads2 = _file_counts()
+    np.testing.assert_allclose(f.numpy(), f_dense.numpy(), rtol=1e-12, atol=1e-300)
+    # continuum passes: one per tile, and in the accuracy mode one per pixel
+    # range of the threshold, which a mesh row runs over its columns
+    passes = (4 if sharded else 1) + (0 if mode == "reference" else (4 if sharded else 1))
+    assert (rows1 - rows0, uploads1 - uploads0) == (3 * passes, 0)
+    assert (rows2 - rows1, uploads2 - uploads1) == (0, 3 * passes)
+
+
+def test_file_sigma_rows_slice_like_dense_arrays(grid):
+    """The continuum's file terms from rows cut to a model chunk and a
+    pixel range equal those of the dense arrays cut alike, and the whole
+    batch's pass cut afterwards, at 1e-12."""
+    cfg, paths, nus, _plan, _batch, _f_ref = grid
+    config, adata, model0 = t_parse(dict(cfg))
+    models = [model0] + [t_read_model(config, adata, p) for p in paths[1:]]
+    tplan, tb = tbatch.make_batch(config, adata, models, nus)
+    if not tplan.file_sources:
+        assert tb.file_sigmas is None
+        return
+    consts = tpipe.device_constants(tplan, torch.float64, "cpu")
+    state, _quants = tpipe.stage_plasma_and_lines(
+        tplan, torch.as_tensor(tb.temperatures), torch.as_tensor(tb.n_elem), consts,
+        tuple(torch.as_tensor(x) for x in tb.molecule_rows or ()) or None)
+    whole = tpipe.continuum_batch(tplan, state, consts.tracing_nus, consts, tb.file_sigmas)
+    (m0, m1), (a, b) = (1, 3), (17, 71)
+    part = type(state)(*(x[m0:m1] for x in state))
+    cut = tpipe.continuum_batch(tplan, part, consts.tracing_nus[a:b], consts,
+                                [s[m0:m1] for s in tb.file_sigmas], slice(a, b))
+    cut_dense = tpipe.continuum_batch(tplan, part, consts.tracing_nus[a:b], consts,
+                                      [s.dense()[m0:m1] for s in tb.file_sigmas], slice(a, b))
+    for name, *_ in tplan.file_sources:
+        key = f"alpha_file_{name}"
+        assert cut[key].shape == (m1 - m0, 56, b - a)
+        np.testing.assert_allclose(cut[key].numpy(), cut_dense[key].numpy(), rtol=1e-12,
+                                   atol=0, err_msg=key)
+        np.testing.assert_allclose(cut[key].numpy(), whole[key][m0:m1, :, a:b].numpy(),
+                                   rtol=1e-12, atol=0, err_msg=key)
+
+
+def test_reference_plan_takes_dense_sigmas_only(grid):
+    """A plan carried over from the JAX package has dense sigmas and no
+    file tables: the port's batch inputs are refused for it, with a reason,
+    in place of a wrong expansion."""
+    cfg, paths, nus, plan, _batch, _f_ref = grid
+    tplan = tpipe.plan_from_reference(plan)
+    assert tplan.file_tables == []
+    assert all(isinstance(sig, np.ndarray) and sig.shape == (56, len(nus))
+               for _name, sig, _dplan in tplan.file_sources)
+    config, adata, model0 = t_parse(dict(cfg))
+    models = [model0] + [t_read_model(config, adata, p) for p in paths[1:]]
+    if not tplan.file_sources:
+        assert tbatch.collect_batch_inputs(config, models, tplan).file_sigmas is None
+        return
+    with pytest.raises(ValueError, match="batch_from_reference"):
+        tbatch.collect_batch_inputs(config, models, tplan)
+    _own_plan, tb = tbatch.make_batch(config, adata, models, nus)
+    with pytest.raises(ValueError, match="file tables"):
+        tbatch.run_batch(tplan, tb, device="cpu", dtype=torch.float64)
 
 
 def test_members_match_single_runs(grid):

@@ -10,10 +10,16 @@
   span names; ``run_batch(timings=)`` keeps its keys, each stage's span
   covering its wall; ``StageTimer`` reports as before.
 * A second profiler session starts an empty buffer.
+* A float32 batch's H- ff opacity, expanded from the file table's rows
+  with the subnormal factor 1e-26 k_B T folded into the density, matches
+  its float64 evaluation at 1e-6, where the dense float32 cross-section
+  (~1e-40, subnormal) misses it.
 * On the card (marked ``cuda``): no ``stardis.*`` event is among the device
   events of a profiled request or batch, and after warm-up 20 requests and
   3 batches capture no stage 1 again, build no kernel and replay stage 1
-  once a call.  Run there with
+  once a call; 3 batches expand their 3 file tables from rows 9 times and
+  copy no dense cross-section, and the float32 H- ff opacity holds its
+  1e-6.  Run there with
   ``python -m pytest --noconftest tests/test_torch_tracing.py``.
 
 No JAX here, so the file runs on the card's machine too.
@@ -27,10 +33,12 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from stardis_tpu_torch import pipeline as tpipe
 from stardis_tpu_torch import units as tu
 from stardis_tpu_torch.atom_data.builtin import build_builtin_atom_data
 from stardis_tpu_torch.base import parse_config_to_model, read_stellar_model
 from stardis_tpu_torch.io.synthetic import write_marcs_file, write_opacity_tables
+from stardis_tpu_torch.opacities import continuum as tcont
 from stardis_tpu_torch.opacities.lines import synth_linelist, synth_molecule_linelist
 from stardis_tpu_torch.parallel import batch as tbatch
 from stardis_tpu_torch.serving import SpectralService
@@ -221,13 +229,58 @@ def test_batch_inputs_unchanged_by_tracing(giants):
     with cpu_profile():
         traced = tbatch.collect_batch_inputs(config, models, plan)
     assert len(plain.file_sigmas) == 3 and plain.molecule_rows is not None
+
+    def rows(batch):
+        return [x for s in batch.file_sigmas for x in (s.lo, s.w, s.factor)]
+
     for a, b in zip((plain.temperatures, plain.n_elem, plain.ray_distances,
-                     plain.photospheric_correction, *plain.file_sigmas,
+                     plain.photospheric_correction, *rows(plain),
                      *plain.molecule_rows),
                     (traced.temperatures, traced.n_elem, traced.ray_distances,
-                     traced.photospheric_correction, *traced.file_sigmas,
+                     traced.photospheric_correction, *rows(traced),
                      *traced.molecule_rows)):
         np.testing.assert_array_equal(a, b)
+
+
+def hminus_ff_f32(giants, device, dense=False):
+    """(float32 alpha_file_Hminus_ff [B, D, N] of the giants' batch on
+    ``device``, its float64 evaluation from the same float32 densities):
+    the continuum takes the batch's rows, or with ``dense`` the rows
+    expanded to float64 host arrays, which it copies to the device."""
+    _cfg, config, _adata, models = giants
+    plan = template_plan(giants)
+    batch = tbatch.collect_batch_inputs(config, models, plan)
+    consts = tpipe.device_constants(plan, torch.float32, device)
+
+    def f32(x):
+        return torch.as_tensor(x, device=device).to(torch.float32)
+
+    state, _quants = tpipe.stage_plasma_and_lines(
+        plan, f32(batch.temperatures), f32(batch.n_elem), consts,
+        tuple(f32(x) for x in batch.molecule_rows))
+    sigmas = batch.file_sigmas
+    opac = tpipe.continuum_batch(plan, state, consts.tracing_nus, consts,
+                                 [s.dense() for s in sigmas] if dense else sigmas)
+    i = [name for name, *_ in plan.file_sources].index("Hminus_ff")
+    density = tcont.species_density(plan.file_sources[i][2], tpipe.column_state(state),
+                                    plan.tables)
+    density = density.cpu().double().numpy().reshape(state.t.shape)
+    sigma = sigmas[i].dense()
+    # every cross-section lies below float32's smallest normal number
+    assert (sigma > 0).any() and sigma.max() < torch.finfo(torch.float32).tiny
+    ref = density[..., None] * sigma
+    return opac["alpha_file_Hminus_ff"].cpu().double().numpy(), ref
+
+
+def test_float32_hminus_ff_from_rows_matches_float64(giants):
+    """The rows' expansion keeps float32's precision; the dense float32
+    sigma (1e-26 k_B T x the table, ~1e-40, a subnormal of ~1e-5 relative
+    precision) does not."""
+    got, ref = hminus_ff_f32(giants, "cpu")
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=0)
+    got_dense, ref_dense = hminus_ff_f32(giants, "cpu", dense=True)
+    nonzero = ref_dense > 0
+    assert np.abs(got_dense[nonzero] / ref_dense[nonzero] - 1).max() > 1e-6
 
 
 def test_stage_timer_reports_as_before_under_a_profiler():
@@ -329,3 +382,26 @@ def test_card_annotations_stay_out_of_device_events_and_nothing_is_built_again(c
     assert after["stage1_captures"] == before["stage1_captures"]
     assert after["kernel_builds"] == before["kernel_builds"]
     assert after["stage1_replays"] == before["stage1_replays"] + 2 + 20 + 3
+
+
+@pytest.mark.cuda
+def test_card_batches_expand_file_tables_from_rows(cuda, giants):
+    """After warm-up, 3 batches of the giants expand their 3 file tables on
+    the card from rows 9 times and copy no dense cross-section there; the
+    float32 H- ff opacity holds 1e-6 of its float64 evaluation."""
+    _cfg, config, _adata, models = giants
+    plan = template_plan(giants)
+
+    def batch():
+        inputs = tbatch.collect_batch_inputs(config, models, plan)
+        return tbatch.run_batch(plan, inputs, device=cuda, dtype=torch.float32).cpu()
+
+    batch()
+    before = profiling.counters()
+    for _ in range(3):
+        batch()
+    after = profiling.counters()
+    assert after["file_sigma_rows"] - before["file_sigma_rows"] == 9
+    assert after["file_sigma_uploads"] == before["file_sigma_uploads"]
+    got, ref = hminus_ff_f32(giants, cuda)
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=0)
