@@ -163,18 +163,22 @@ def breakdown(device_events, spans):
     return {"device_ops": top(by_op), "idle_gaps": top(gaps)}
 
 
-def kernel_launches(ref, calls, itemsize):
+def kernel_launches(ref, calls, itemsize, model_of=None):
     """Kernel 1's and Kernel 2's launches of ``calls`` (lists of the
     models' reference keys, one list per call), the work of each counted
     from the reference's own line quantities and windows: one Kernel 1
-    launch per line set and call, one Kernel 2 launch per call."""
+    launch per line set and call, one Kernel 2 launch per call.  A key's
+    model is ``ref.model(*key)``, or ``model_of(ref, key)`` where the
+    driver module defines that as ``reference_model`` (a fit scales the
+    densities too)."""
+    model_of = model_of or (lambda ref, key: ref.model(*key))
     plan, consts = ref.plan, ref.consts
     n_nu, n_depth = consts.grid.shape[0], len(plan.temperatures)
     k1, k2 = [], []
     for keys in calls:
         per_set = {}
         for c0 in range(0, len(keys), REFERENCE_CHUNK):
-            chunk = [ref.model(*key) for key in keys[c0:c0 + REFERENCE_CHUNK]]
+            chunk = [model_of(ref, key) for key in keys[c0:c0 + REFERENCE_CHUNK]]
             _state, quants = ref.stage1(chunk)
             for key, (_alpha, gamma, doppler, iw) in ref.windows(quants).items():
                 line_nu, centers = consts.lines[key]
@@ -200,9 +204,10 @@ def check(ref, answers, mix, seed, n_nu, kept=None, control=None):
     ``control`` reference (``control.py``), its answers at the same inputs
     take the program's place: the control's reading, returned instead.
 
-    A traffic kind whose answers are not spectra (a fit's losses and
-    gradients) brings its own ``check`` with this signature in its driver
-    module; ``kept`` is what its ``Driver.close()`` returned (readings of
+    A traffic kind whose answers are not spectra (a fit's model spectra
+    and gradients) brings its own ``check`` with this signature in its driver
+    module, which ``run`` and ``control_readings`` both call in place of
+    this one; ``kept`` is what its ``Driver.close()`` returned (readings of
     set-up's first steps, say), None for the kinds here."""
     rng = np.random.default_rng(seed_words(seed, 1))
     done = [i for i, out in enumerate(answers) if out is not None]
@@ -293,7 +298,8 @@ def run(workload, seed, seconds, trace, device="cuda", dtype=torch.float32,
             del prof
             busy = yardstick.busy_seconds([(s, e) for _n, s, e in device_events])
             k1, k2 = kernel_launches(ref, [k for k in keys if k],
-                                     torch.empty((), dtype=dtype).element_size())
+                                     torch.empty((), dtype=dtype).element_size(),
+                                     getattr(driver_mod, "reference_model", None))
             record.update(busy_s=busy, device_events=device_events, timings=timings,
                           kernel1=k1, kernel2=k2)
             device_info.update(busy_s=busy, window_s=window)
@@ -307,11 +313,12 @@ def run(workload, seed, seconds, trace, device="cuda", dtype=torch.float32,
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
 
         t_check = time.perf_counter()
-        compared = getattr(driver_mod, "check", check)(ref, answers, mix, seed,
-                                                       len(ctx.lambdas), kept)
+        cell_check = getattr(driver_mod, "check", check)
+        compared = cell_check(ref, answers, mix, seed, len(ctx.lambdas), kept)
         log(f"{workload}: check {time.perf_counter() - t_check:.3f} s")
         if control:
-            extra["control"] = control_readings(config, ctx, template, ref, answers, mix, seed)
+            extra["control"] = control_readings(cell_check, config, ctx, template, ref,
+                                                answers, mix, seed, kept)
     correct = failed == 0 and all(value <= limits[name]["limit"]
                                   for name, value in compared.items())
     for name, value in compared.items():
@@ -322,15 +329,16 @@ def run(workload, seed, seconds, trace, device="cuda", dtype=torch.float32,
                          for name, value in compared.items()}}
 
 
-def control_readings(config, ctx, template, ref, answers, mix, seed):
+def control_readings(cell_check, config, ctx, template, ref, answers, mix, seed, kept):
     """The control: the reference computed in bfloat16, the precision below
     the configuration's float32, in the program's place on the same sampled
-    inputs and pixels: {number: value}.  (TF32, the step below float32 for
-    a matrix product, touches only the bound-free product here and moves
-    the surface flux less than float32 rounding does: PERF.md.)"""
+    inputs and pixels, read by the cell's own ``cell_check`` (the driver
+    module's, or ``check``): {number: value}.  (TF32, the step below
+    float32 for a matrix product, touches only the bound-free product here
+    and moves the surface flux less than float32 rounding does: PERF.md.)"""
     low = Reference(inputs.stardis_config(config, template, ctx.tables),
                     inputs.atom_data(config), ctx.lambdas, template, ref.device, torch.bfloat16)
-    return check(ref, answers, mix, seed, len(ctx.lambdas), control=low)
+    return cell_check(ref, answers, mix, seed, len(ctx.lambdas), kept, control=low)
 
 
 def device_record(cuda, peak, chips):

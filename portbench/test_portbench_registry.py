@@ -91,3 +91,33 @@ def test_driver_module_check_replaces_the_spectrum_check(monkeypatch):
                        overrides=bench.test_sizes("sim100aa_sun.serve"), log=lambda msg: None)
     assert seen["kept"] == "first steps" and seen["calls"] == result["attempted"] >= 1
     assert result["compared"]["spectrum_rel_err"]["value"] == 1.0 and not result["correct"]
+
+
+def test_control_readings_use_the_kinds_own_check(monkeypatch):
+    """``control_readings`` hands the control (the reference in bfloat16)
+    to the check of the driver module, where it has one."""
+    import types
+
+    import torch
+
+    real_load = bench.load_module
+    seen = []
+
+    def load(folder, name):
+        module = real_load(folder, name)
+        if folder != "drivers":
+            return module
+
+        def check(ref, answers, mix, seed, n_nu, kept=None, control=None):
+            seen.append((ref.dtype, None if control is None else control.dtype))
+            return {"spectrum_rel_err": 0.0 if control is None else 2.0}
+
+        return types.SimpleNamespace(Driver=module.Driver, check=check)
+
+    monkeypatch.setattr(bench, "load_module", load)
+    torch.set_num_threads(2)
+    result = bench.run("sim100aa_sun.serve", 5, 0.2, 0, "cpu", torch.float64,
+                       overrides=bench.test_sizes("sim100aa_sun.serve"), log=lambda msg: None,
+                       control=True)
+    assert seen == [(torch.float64, None), (torch.float64, torch.bfloat16)]
+    assert result["control"] == {"spectrum_rel_err": 2.0} and result["correct"]

@@ -11,6 +11,13 @@ from portbench import bench
 
 CELLS = [w["name"] for w in bench.load_spec()["workloads"]]
 SEED = 2**31 + 77
+#: the most a sound float64 run on the CPU reads, by number compared: the
+#: spectra, the fit's model spectra and Kernel 1b's outputs agree to
+#: rounding; the fit's gradient is held to the reference's central
+#: difference in the T scale (its truncation reads up to 1.5e-8 of that
+#: component at these sizes)
+SOUND = {"spectrum_rel_err": 1e-9, "fit_model_err": 1e-9, "fit_grad_rel_err": 1e-7,
+         "kernel1b_grad_err": 1e-9}
 
 
 def small_run(workload, seconds=0.5, trace=0):
@@ -23,7 +30,7 @@ def small_run(workload, seconds=0.5, trace=0):
 def test_sound_run_is_correct(workload):
     result = small_run(workload)
     assert result["correct"] and result["failed"] == 0 and result["attempted"] >= 1
-    assert result["compared"]["spectrum_rel_err"]["value"] < 1e-9
+    assert all(entry["value"] < SOUND[name] for name, entry in result["compared"].items())
     assert list(result)[-1] == "compared"
     names = {m["name"] for m in bench.cell_metrics(bench.load_spec(), workload, "end_to_end")}
     assert set(result["metrics"]) == names
@@ -68,8 +75,35 @@ def half_batch_left_out(monkeypatch):
     monkeypatch.setattr(batch_mod, "run_batch", fake)
 
 
+def kernel1b_off(monkeypatch):
+    """A fault of a fit's backward: Kernel 1b's plain version returns its
+    gradients of alpha, gamma and doppler 1 % too large."""
+    from stardis_tpu_torch.opacities import line_kernel
+
+    real = line_kernel.accumulate_line_opacity_plain_backward
+
+    def fake(*args, **kw):
+        return tuple(None if g is None else g * 1.01 for g in real(*args, **kw))
+
+    monkeypatch.setattr(line_kernel, "accumulate_line_opacity_plain_backward", fake)
+
+
+def sigma_gradient_dropped(monkeypatch):
+    """A fault of a fit's backward: the instrumental kernel takes sigma
+    detached, so the step's gradient in sigma is 0."""
+    from stardis_tpu_torch import postprocessing
+
+    real = postprocessing.gaussian_kernel_torch
+
+    def fake(sigma, *args, **kw):
+        return real(sigma.detach() if torch.is_tensor(sigma) else sigma, *args, **kw)
+
+    monkeypatch.setattr(postprocessing, "gaussian_kernel_torch", fake)
+
+
 FAULTS = [(cell, altered_answer) for cell in CELLS] + [
-    ("giant_mol.batch8", half_batch_left_out)]
+    ("giant_mol.batch8", half_batch_left_out), ("sim100aa_sun.fit", kernel1b_off),
+    ("sim100aa_sun.fit", sigma_gradient_dropped)]
 
 
 @pytest.mark.parametrize("workload,fault", FAULTS,
@@ -78,5 +112,5 @@ def test_broken_path_is_not_correct(workload, fault, monkeypatch):
     fault(monkeypatch)
     result = small_run(workload)
     assert not result["correct"]
-    value = result["compared"]["spectrum_rel_err"]
-    assert value["value"] > value["limit"] and np.isfinite(value["value"])
+    assert any(v["value"] > v["limit"] and np.isfinite(v["value"])
+               for v in result["compared"].values())
