@@ -24,7 +24,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import inputs, yardstick
+from . import inputs, kernel1_tap, yardstick
 from .reference.spectrum import Reference
 
 HERE = Path(__file__).resolve().parent
@@ -196,42 +196,131 @@ def kernel_launches(ref, calls, itemsize, model_of=None):
     return k1, k2
 
 
+def draw_pixels(rng, n_pix, n_nu):
+    """``n_pix`` pixels of an ``n_nu``-pixel grid drawn with ``rng``, both
+    ends of the grid among them, ascending (all of them on a smaller grid)."""
+    n_pix = min(n_pix, n_nu)
+    return np.unique(np.concatenate([[0, n_nu - 1],
+                                     rng.choice(np.arange(1, n_nu - 1), n_pix - 2,
+                                                replace=False)]))
+
+
+def line_opacity_err(ours, want):
+    """The largest, over line sets and over (model, depth) rows, of the
+    largest |kappa - kappa_ref| in the row over the largest kappa_ref in it:
+    ``ours`` and ``want`` map each line set to [..., P] arrays.  A row the
+    reference holds no line in reads 0 if ours holds none either; a line set
+    on one side only, or a value that is not finite, reads inf."""
+    if set(ours) != set(want):
+        return float("inf")
+    worst = 0.0
+    for key, k_ref in want.items():
+        off = np.max(np.abs(np.asarray(ours[key], np.float64) - k_ref), axis=-1)
+        scale = np.max(np.abs(k_ref), axis=-1)
+        err = np.where(scale > 0, off / np.where(scale > 0, scale, 1.0),
+                       np.where(off == 0, 0.0, np.inf))
+        if not np.all(np.isfinite(err)):
+            return float("inf")
+        worst = max(worst, float(np.max(err, initial=0.0)))
+    return worst
+
+
+def line_opacity_pixel_err(ours, want):
+    """The largest, over line sets and over every (model, depth, pixel) at
+    which the reference's line sum is above 0, of |kappa - kappa_ref| over
+    kappa_ref: the error at the weakest pixel counts as much as at a line's
+    core, so lost wings show (where kappa_ref is 0, ``line_opacity_err``
+    judges).  A line set on one side only, or a value that is not finite,
+    reads inf."""
+    if set(ours) != set(want):
+        return float("inf")
+    worst = 0.0
+    for key, k_ref in want.items():
+        kappa = np.asarray(ours[key], np.float64)
+        if not np.all(np.isfinite(kappa)):
+            return float("inf")
+        held = k_ref > 0
+        worst = max(worst, float(np.max(np.abs(kappa[held] - k_ref[held]) / k_ref[held],
+                                        initial=0.0)))
+    return worst
+
+
 def check(ref, answers, mix, seed, n_nu, kept=None, control=None):
-    """The check of ``correct``: a sample of the completed calls, drawn
-    from the seed, each answer's surface F_nu at pixels drawn from the
-    seed (both ends of the grid among them) against the reference.
-    Returns {number: value}: the largest |F / F_ref - 1|.  With a
-    ``control`` reference (``control.py``), its answers at the same inputs
-    take the program's place: the control's reading, returned instead.
+    """The check of ``correct``: the calls the run's ``kernel1_tap`` kept
+    (``kept``: a sample of ``check_calls`` of the window's calls, drawn from
+    the seed, with Kernel 1's output at pixels drawn from the seed, both
+    ends of the grid among them), those that returned, against the
+    reference at those pixels.  Returns {number: value}:
+
+    * ``spectrum_rel_err``: the largest |F / F_ref - 1| of each answer's
+      surface F_nu;
+    * ``line_opacity_err``: Kernel 1's output as the call produced it, each
+      line set's opacity at every depth, against the reference's line sum
+      (``line_opacity_err``: on the scale of each row's largest);
+      a call whose launches the tap did not see whole
+      (``kernel1_tap.assemble``) reads inf;
+    * ``line_opacity_pixel_err``: the same, pixel by pixel on the scale of
+      the reference's own value there (``line_opacity_pixel_err``).
+
+    Each line set's spread, a row's largest kappa_ref over its median, goes
+    to standard error: the factor by which ``line_opacity_err`` scales an
+    error at a row's typical pixel down.
+
+    With a ``control`` reference (``control.py``), its spectra and line
+    sums at the same inputs take the program's place: the control's
+    readings, returned instead.
 
     A traffic kind whose answers are not spectra (a fit's model spectra
     and gradients) brings its own ``check`` with this signature in its driver
     module, which ``run`` and ``control_readings`` both call in place of
-    this one; ``kept`` is what its ``Driver.close()`` returned (readings of
-    set-up's first steps, say), None for the kinds here."""
-    rng = np.random.default_rng(seed_words(seed, 1))
-    done = [i for i, out in enumerate(answers) if out is not None]
-    picked = sorted(rng.choice(len(done), size=min(mix["check_calls"], len(done)),
-                               replace=False)) if done else []
-    n_pix = min(mix["check_pixels"], n_nu)
-    pixels = np.unique(np.concatenate([[0, n_nu - 1],
-                                       rng.choice(np.arange(1, n_nu - 1), n_pix - 2,
-                                                  replace=False)]))
-    pairs = [pair for j in picked for pair in answers[done[j]]]
+    this one; ``kept`` is then what its ``Driver.close()`` returned."""
+    failed = dict.fromkeys(("spectrum_rel_err", "line_opacity_err", "line_opacity_pixel_err"),
+                           float("inf"))
+    if not kept:
+        return failed
+    pixels = kept["pixels"]
+    calls = sorted(i for i in kept["calls"] if answers[i] is not None)
+    pairs = [(i, b, key, f) for i in calls for b, (key, f) in enumerate(answers[i])]
     if not pairs:
-        return {"spectrum_rel_err": float("inf")}
-    worst = 0.0
+        return failed
+    sets = {key: int(line_nu.shape[0]) for key, (line_nu, _c) in ref.consts.lines.items()}
+    flux_err = kappa_err = pixel_err = 0.0
+    spread = {}
     for c0 in range(0, len(pairs), REFERENCE_CHUNK):
         chunk = pairs[c0:c0 + REFERENCE_CHUNK]
-        models = [ref.model(*key) for key, _f in chunk]
-        f_ref = ref.surface_flux(models, pixels)
+        models = [ref.model(*key) for _call, _b, key, _f in chunk]
+        want = {}
+        f_ref = ref.surface_flux(models, pixels, want)
+        for key, k_ref in want.items():
+            row_max, row_median = np.max(k_ref, axis=-1), np.median(k_ref, axis=-1)
+            ratio = row_max[row_median > 0] / row_median[row_median > 0]
+            lo, hi = spread.get(key, (np.inf, 0.0))
+            spread[key] = (min(lo, np.min(ratio, initial=np.inf)),
+                           max(hi, np.max(ratio, initial=0.0)))
         if control is None:
-            f_ours = np.stack([np.asarray(f, dtype=np.float64)[pixels] for _key, f in chunk])
+            f_ours = np.stack([np.asarray(f, dtype=np.float64)[pixels]
+                               for _call, _b, _key, f in chunk])
+            per_call = {i: kernel1_tap.assemble(kept["calls"][i], pixels,
+                                                {key: sets[key] for key in want})
+                        for i in {call for call, _b, _key, _f in chunk}}
+            ours = (None if any(v is None for v in per_call.values()) else
+                    {key: np.stack([per_call[i][key][b] for i, b, _key, _f in chunk])
+                     for key in want})
         else:
-            f_ours = control.surface_flux(models, pixels)
+            ours = {}
+            f_ours = control.surface_flux(models, pixels, ours)
         err = np.abs(f_ours / f_ref - 1.0)
-        worst = max(worst, float(np.max(err)) if np.all(np.isfinite(err)) else float("inf"))
-    return {"spectrum_rel_err": worst}
+        flux_err = max(flux_err, float(np.max(err)) if np.all(np.isfinite(err))
+                       else float("inf"))
+        kappa_err = max(kappa_err, float("inf") if ours is None
+                        else line_opacity_err(ours, want))
+        pixel_err = max(pixel_err, float("inf") if ours is None
+                        else line_opacity_pixel_err(ours, want))
+    for key, (lo, hi) in spread.items():
+        print(f"check: {key} lines: a row's largest kappa_ref over its median "
+              f"{lo:.4g} .. {hi:.4g}", file=sys.stderr)
+    return {"spectrum_rel_err": flux_err, "line_opacity_err": kappa_err,
+            "line_opacity_pixel_err": pixel_err}
 
 
 def test_sizes(workload):
@@ -259,21 +348,36 @@ def run(workload, seed, seconds, trace, device="cuda", dtype=torch.float32,
     driver_mod = load_module("drivers", mix["kind"])
     cuda = torch.device(device).type == "cuda"
 
+    cell_check = getattr(driver_mod, "check", check)
+
     with tempfile.TemporaryDirectory(prefix="portbench-") as tmp:
         ctx = Context(config, mix, seed, device, dtype, tmp)
         log(f"{workload}: inputs at {time.perf_counter() - t_start:.3f} s")
         driver = driver_mod.Driver(ctx)
+        # the spectrum check reads Kernel 1's output from the window's calls
+        tap = None if cell_check is not check else kernel1_tap.Kernel1Tap(
+            draw_pixels(np.random.default_rng(seed_words(seed, 1)), mix["check_pixels"],
+                        len(ctx.lambdas)),
+            mix["check_calls"], np.random.default_rng(seed_words(seed, 5)),
+            len(ctx.lambdas), device, dtype)
         if cuda:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         setup_s = time.perf_counter() - t_start
         log(f"{workload}: set-up {setup_s:.3f} s")
 
-        if trace:
-            window, latencies, answers, failed, prof, timings = profiled_loop(
-                driver, min(seconds, TRACE_SECONDS), cuda)
-        else:
-            window, latencies, answers, failed = closed_loop(driver, seconds)
+        timed = driver if tap is None else tap.around(driver)
+        if tap is not None:
+            tap.install()
+        try:
+            if trace:
+                window, latencies, answers, failed, prof, timings = profiled_loop(
+                    timed, min(seconds, TRACE_SECONDS), cuda)
+            else:
+                window, latencies, answers, failed = closed_loop(timed, seconds)
+        finally:
+            if tap is not None:
+                tap.remove()
         if cuda:
             torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() if cuda else 0
@@ -284,7 +388,9 @@ def run(workload, seed, seconds, trace, device="cuda", dtype=torch.float32,
         template, keys = driver.template_path, [
             [key for key, _f in out] if out is not None else [] for out in answers]
         kept = driver.close()
-        del driver
+        if tap is not None:
+            kept = tap.close()
+        del driver, tap
         if cuda:
             torch.cuda.empty_cache()
 
@@ -313,7 +419,6 @@ def run(workload, seed, seconds, trace, device="cuda", dtype=torch.float32,
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
 
         t_check = time.perf_counter()
-        cell_check = getattr(driver_mod, "check", check)
         compared = cell_check(ref, answers, mix, seed, len(ctx.lambdas), kept)
         log(f"{workload}: check {time.perf_counter() - t_check:.3f} s")
         if control:

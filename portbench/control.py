@@ -7,7 +7,10 @@ program's place.  One JSON line per seed.
     python3 portbench/control.py --workload sim100aa_sun.serve \
         --seeds 1,2,3,4,5,6,7,8,9,10,11,12 --control-seeds 1,2,3 --seconds 3
 
-The benchmark's own runs never run the control.
+``--kernel1-scale 1.01`` reads a fault instead: Kernel 1's output scaled
+where ``accumulate_line_opacity_cuda`` returns it, in the measured window
+alone (``faults.py``), so only a check that reads the window's own calls
+sees it.  The benchmark's own runs never run the control or a fault.
 """
 
 import argparse
@@ -24,6 +27,7 @@ def main(argv=None):
     parser.add_argument("--seeds", required=True)
     parser.add_argument("--control-seeds", default="")
     parser.add_argument("--seconds", type=float, default=3.0)
+    parser.add_argument("--kernel1-scale", type=float, default=None)
     args = parser.parse_args(argv)
     import os
 
@@ -36,9 +40,11 @@ def main(argv=None):
         return 2
     from stardis_tpu_torch.util.compile_cache import enable_compilation_cache
 
-    from portbench import bench
+    from portbench import bench, faults
 
     enable_compilation_cache()
+    if args.kernel1_scale is not None:
+        faults.scale_kernel1(setattr, args.kernel1_scale, when=faults.in_window(setattr))
     controls = {int(s) for s in args.control_seeds.split(",") if s}
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
@@ -48,7 +54,7 @@ def main(argv=None):
                 "attempted": result["attempted"], "failed": result["failed"],
                 "program": {k: v["value"] for k, v in result["compared"].items()},
                 "control": result.get("control"), "seconds": time.perf_counter() - t0,
-                "kind": torch.cuda.get_device_name(0)}
+                "kind": torch.cuda.get_device_name(0), "kernel1_scale": args.kernel1_scale}
         print(json.dumps(line), flush=True)
     return 0
 

@@ -24,12 +24,13 @@ fit's convergence test and its plot read them.
 
 Set-up also draws from the seed one of the window's first
 ``kernel1b_within`` steps (the first fit, ~2.5 s of the window) at which
-the step keeps Kernel 1b's input and outputs for the check: the gradient
-of the loss with respect to each line set's opacity [D, N], and with
-respect to its alpha, gamma and doppler widths [L, D].  Hooks on the
-tensors that ``stage_spectrum`` and ``stage_plasma_and_lines`` return take
-them during the step's own backward; they are copied to the host once the
-window has closed.
+the step keeps, for the check, Kernel 1's output, each line set's opacity
+[D, N] as ``stage_spectrum`` returns it, and Kernel 1b's input and
+outputs: the gradient of the loss with respect to that opacity [D, N], and
+with respect to the set's alpha, gamma and doppler widths [L, D].  Hooks on
+the tensors that ``stage_spectrum`` and ``stage_plasma_and_lines`` return
+take the gradients during the step's own backward; all are copied to the
+host once the window has closed.
 
 The observed spectra are the program's own: the check compares the
 sampled step's target's with the reference's at its true parameters, so
@@ -37,7 +38,8 @@ a fault in them does not hide behind both sides' use of one array.
 
 ``check`` compares sampled steps with ``reference.fit``: the model spectrum
 and the target's observed spectrum, the gradient, each component weighted
-by its parameter's range, and Kernel 1b's outputs at the kept step.
+by its parameter's range, and Kernels 1's and 1b's outputs at the kept
+step.
 """
 
 import sys
@@ -54,6 +56,9 @@ from portbench.reference import fit as reference_fit
 C_KMS = 299792.458
 #: the fitted parameters, each with its range of true values in the mix
 PARAMS = ("t_scale", "v_sin_i_kms", "sigma_pix")
+#: pixels at which the check compares the kept step's line opacity, as
+#: many as the spectrum cells' ``check_pixels``
+KAPPA_PIXELS = 1024
 
 
 def velocity_per_pixel(lambdas_aa):
@@ -169,7 +174,8 @@ class Driver:
 
     def close(self):
         """Frees the program's state; returns the kept step with its line
-        gradients as host arrays ([D, N] and [L, D]), or None."""
+        opacities and gradients as host arrays ([D, N] and [L, D]), or
+        None."""
         kept = self.kept
         if kept is not None:
             kept["lines"] = {key: {name: g.reshape(g.shape[-2:]).cpu().numpy()
@@ -180,10 +186,11 @@ class Driver:
 
 
 def keep_line_gradients(quants, opacities, store):
-    """Hooks that put into ``store[line set]``, when the backward reaches
-    them, Kernel 1b's input, the gradient with respect to the line set's
-    opacity ("kappa"), and its outputs, the gradients with respect to its
-    alpha, gamma and doppler."""
+    """Kernel 1's output, each line set's opacity as the step computed it,
+    into ``store[line set]["opacity"]``, and hooks that put there, when the
+    backward reaches them, Kernel 1b's input, the gradient with respect to
+    that opacity ("kappa"), and its outputs, the gradients with respect to
+    its alpha, gamma and doppler."""
     from stardis_tpu_torch.pipeline import LINE_SETS
 
     def keeper(entry, name):
@@ -196,6 +203,7 @@ def keep_line_gradients(quants, opacities, store):
             continue
         entry = store.setdefault(key, {})
         kappa = opacities[label]  # a view of the tensor the total opacity sums
+        entry["opacity"] = kappa.detach().clone()
         (kappa if kappa._base is None else kappa._base).register_hook(keeper(entry, "kappa"))
         for name, tensor in zip(("alpha", "gamma", "doppler"), quants[key]):
             tensor.register_hook(keeper(entry, name))
@@ -230,7 +238,10 @@ def check(ref, answers, mix, seed, n_nu, kept=None, control=None):
       (autograd through its line sum at its own line quantities and
       windows for the step's parameters), both fed the program's gradient
       in the line opacity at that step; for each of the three the largest
-      |g - g_ref| over the largest |g_ref|, and the largest of the three.
+      |g - g_ref| over the largest |g_ref|, and the largest of the three;
+    * ``line_opacity_err``: Kernel 1's output at the kept step, each line
+      set's opacity at every depth, against the reference's line sum at
+      ``KAPPA_PIXELS`` pixels drawn from the seed (``line_opacity_err``).
 
     The loss itself is not compared: a fit's residual is a difference of
     nearly equal spectra, which float32 holds to a few per cent only.
@@ -242,8 +253,8 @@ def check(ref, answers, mix, seed, n_nu, kept=None, control=None):
     done = [i for i, out in enumerate(answers) if out is not None]
     picked = sorted(rng.choice(len(done), size=min(mix["check_steps"], len(done)),
                                replace=False)) if done else []
-    failed = dict.fromkeys(("fit_model_err", "fit_grad_rel_err", "kernel1b_grad_err"),
-                           float("inf"))
+    failed = dict.fromkeys(("fit_model_err", "fit_grad_rel_err", "kernel1b_grad_err",
+                            "line_opacity_err"), float("inf"))
     if not picked:
         return failed
     ranges = np.array([hi - lo for lo, hi in (mix[k] for k in PARAMS)])
@@ -269,7 +280,25 @@ def check(ref, answers, mix, seed, n_nu, kept=None, control=None):
             return failed
         model_err, grad_err = max(model_err, float(errs[0])), max(grad_err, float(errs[1]))
     return {"fit_model_err": model_err, "fit_grad_rel_err": grad_err,
-            "kernel1b_grad_err": kernel1b_err(ref, kept, mix, seed, control)}
+            "kernel1b_grad_err": kernel1b_err(ref, kept, mix, seed, control),
+            "line_opacity_err": line_opacity_err(ref, kept, seed, control)}
+
+
+def line_opacity_err(ref, kept, seed, control=None):
+    """``check``'s ``line_opacity_err``: Kernel 1's output at the kept step,
+    each line set's opacity at every depth, the program's (or with a
+    ``control`` the control's) against ``ref``'s line sum for the step's
+    model, at ``KAPPA_PIXELS`` pixels drawn from the seed, both ends of the
+    grid among them (``bench.line_opacity_err``)."""
+    if not kept or not kept["lines"]:
+        return float("inf")
+    pixels = bench.draw_pixels(np.random.default_rng(bench.seed_words(seed, 4)),
+                               KAPPA_PIXELS, ref.consts.grid.shape[0])
+    model = reference_fit.scaled_model(ref, kept["path"], kept["params"][0])
+    want = ref.line_sums([model], pixels)
+    ours = ({key: entry["opacity"][None][..., pixels] for key, entry in kept["lines"].items()}
+            if control is None else control.line_sums([model], pixels))
+    return bench.line_opacity_err(ours, want)
 
 
 def kernel1b_err(ref, kept, mix, seed, control=None):

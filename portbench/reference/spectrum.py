@@ -93,9 +93,27 @@ class Reference:
                                                   self.plan.window_mode))
                 for key, triple in (quants or {}).items()}
 
-    def surface_flux(self, models, pixels):
+    def line_sums(self, models, pixels):
+        """Each line set's opacity at the grid's ``pixels``: {line set: [B,
+        D, P] float64 host array}, the line sum with the reference's own
+        line quantities and windows."""
+        pix = torch.as_tensor(np.asarray(pixels, dtype=np.int64), device=self.device)
+        _state, quants = self.stage1(models)
+        return {key: kappa.double().cpu().numpy()
+                for key, kappa in self._line_opacity(quants, pix).items()}
+
+    def _line_opacity(self, quants, pix):
+        """{line set: [B, D, P] tensor}: ``line_sum_at`` of each set."""
+        consts = self.consts
+        return {key: line_sum_at(consts.grid, *consts.lines[key], alpha, gamma, doppler, iw,
+                                 pix)
+                for key, (alpha, gamma, doppler, iw) in self.windows(quants).items()}
+
+    def surface_flux(self, models, pixels, line_sums=None):
         """F_nu at the surface, [B, P] float64 host array, of ``models`` at
-        the grid's ``pixels`` (indices into the descending frequency grid)."""
+        the grid's ``pixels`` (indices into the descending frequency grid).
+        A dict ``line_sums`` receives what ``line_sums`` returns for them,
+        the line opacities this flux was computed with."""
         plan, consts = self.plan, self.consts
         pix = torch.as_tensor(np.asarray(pixels, dtype=np.int64), device=self.device)
         n_models, n_pix = len(models), len(pix)
@@ -115,10 +133,10 @@ class Reference:
         for val in opac.values():
             total = val if total is None else total + val
         total = total.view(n_models, n_depth, n_pix)
-        for key, (alpha, gamma, doppler, iw) in self.windows(quants).items():
-            line_nu, centers = consts.lines[key]
-            total = total + line_sum_at(consts.grid, line_nu, centers, alpha, gamma, doppler,
-                                        iw, pix)
+        for key, kappa in self._line_opacity(quants, pix).items():
+            total = total + kappa
+            if line_sums is not None:
+                line_sums[key] = kappa.double().cpu().numpy()
         source = blackbody_flux_at_nu(nus, temps[..., None])
         geo = [model_geometry(m, self.thetas) for m in models]
         rays = self._tensor(np.stack([g[0] for g in geo]))

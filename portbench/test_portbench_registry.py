@@ -26,6 +26,10 @@ def test_cell_files_found_by_name(workload):
     assert callable(driver.Driver)
     limits = bench.load_json("limits", workload)
     assert all(v["limit"] > 0 for v in limits.values())
+    # every limit lies between the readings it was set from, Kernel 1's
+    # output compared in every cell
+    assert all(v["lower"] < v["limit"] < v["upper"] for v in limits.values())
+    assert "line_opacity_err" in limits
     reported = bench.cell_metrics(SPEC, workload, "end_to_end")
     assert "setup_s" in [m["name"] for m in reported] and len(reported) >= 2
     assert bench.cell_metrics(SPEC, workload, "per_layer")
