@@ -18,7 +18,10 @@ port of ``jax.vmap``); each kernel runs the whole batch in one launch
 batch of one.  On the card, without autograd and without a mesh, stage 1
 is captured once per (plan, B, dtype, device) in a CUDA graph
 (``pipeline.CapturedStage1``) and replayed by later batches, as the JAX
-package keeps its jitted stage 1 in ``_STAGE1_CACHE``.  On a mesh
+package keeps its jitted stage 1 in ``_STAGE1_CACHE``; under autograd
+it replays the graphs of its forward and backward
+(``pipeline.CapturedStage1Grad``) captured for the device constants that
+``_grad_constants`` keeps per (plan, dtype, device).  On a mesh
 (``parallel.sharding``) each batch row runs a contiguous chunk of the
 models, stage 1 (eager, one call per chunk) and the spectrum on the
 devices of its entries.
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from ..pipeline import (
+    STAGE1_GRAD_CACHE_LIMIT,
     CapturedStage1,
     SimulationPlan,
     _stage,
@@ -47,6 +51,7 @@ from ..pipeline import (
     stage_plasma_and_lines,
     validate_line_quants,
 )
+from ..pipeline import _stage_plasma_and_lines as _eager_stage1
 from ..plasma.molecules import MoleculeRows
 from ..radiation_field.solver import gauss_legendre_thetas
 from ..util.profiling import span
@@ -174,7 +179,9 @@ def run_batch(plan: SimulationPlan, batch: BatchInputs, mesh=None, device="cuda"
         torch versions.  ``timings`` receives the wall time of each stage.
     Stage 1 runs once for the batch: on the card, without autograd, as a
     replay of the CUDA graph captured for (plan, B, dtype, device) on the
-    first such call (``captured_stage1``), else eagerly.
+    first such call (``captured_stage1``); under autograd, as a replay of
+    its forward and backward graphs (``pipeline.CapturedStage1Grad``);
+    on the CPU and on a mesh eagerly.
     F_nu carries gradients to ``batch.temperatures`` / ``batch.n_elem``
     when they are tensors that require grad (Kernels 1b and 2b take the
     whole batch in one launch each); the file-table cross-sections and the
@@ -211,7 +218,7 @@ def _run_batch(plan, batch, mesh, device, dtype, plain, timings):
         f_nu, _ = shard_tiles(
             plan, as_batch_nu(mesh), len(batch.temperatures),
             lambda m0, m1, consts, stage_t: _stage1(plan, batch, m0, m1, consts, dtype,
-                                                    stage_t),
+                                                    stage_t, _eager_stage1),
             dtype, ray_distances=batch.ray_distances, photospheric_correction=correction,
             file_sigmas=batch.file_sigmas, plain=plain, timings=timings)
         return f_nu
@@ -264,6 +271,25 @@ def captured_stage1(plan, n_models, dtype, device) -> CapturedStage1:
     return entry
 
 
+# (id(plan), dtype, device) -> (plan, DeviceConstants) of differentiated
+# batches on the card: their stage 1 replays the graphs captured for these
+# constants, so a later batch finds those graphs rather than uploading the
+# constants and capturing again; as many as the graphs kept
+_GRAD_CONSTS = {}
+
+
+def _grad_constants(plan, dtype, device):
+    """The device constants that differentiated batches of ``plan`` share."""
+    key = (id(plan), dtype, device)
+    with _CACHE_LOCK:
+        held = _GRAD_CONSTS.get(key)
+        if held is None:
+            if len(_GRAD_CONSTS) >= STAGE1_GRAD_CACHE_LIMIT:
+                _GRAD_CONSTS.pop(next(iter(_GRAD_CONSTS)))
+            held = _GRAD_CONSTS[key] = (plan, device_constants(plan, dtype, device))
+    return held[1]
+
+
 def _requires_grad(*inputs):
     return any(torch.is_tensor(x) and x.requires_grad for x in inputs)
 
@@ -272,10 +298,12 @@ def _requires_grad(*inputs):
 def _batch_stage1(plan, batch, device, dtype, timings):
     """(consts, state, quants) of the whole batch, valid inside the block:
     the cached CUDA graph replayed on the card (under its lock, which the
-    block holds), the eager stage on the CPU or under autograd."""
+    block holds), ``stage_plasma_and_lines`` on the CPU or under autograd
+    (which replays its own graphs on the card)."""
     n_models = len(batch.temperatures)
     if device.type != "cuda" or _requires_grad(batch.temperatures, batch.n_elem):
-        consts = device_constants(plan, dtype, device)
+        consts = (_grad_constants if device.type == "cuda" else device_constants)(
+            plan, dtype, device)
         yield (consts, *_stage1(plan, batch, 0, n_models, consts, dtype, timings))
         return
     graph = captured_stage1(plan, n_models, dtype, device)
@@ -286,10 +314,12 @@ def _batch_stage1(plan, batch, device, dtype, timings):
         yield graph.consts, state, quants
 
 
-def _stage1(plan, batch, m0, m1, consts, dtype, timings=None):
-    """Stage 1 of the batch's models [m0, m1) on the device of ``consts``,
-    eager, in one call, and one finiteness check of their line quantities:
-    (state, quants) with the model axis."""
+def _stage1(plan, batch, m0, m1, consts, dtype, timings=None,
+            stage1=stage_plasma_and_lines):
+    """Stage 1 of the batch's models [m0, m1) on the device of ``consts``
+    in one call of ``stage1`` (a mesh's threads pass the eager stage), and
+    one finiteness check of their line quantities: (state, quants) with
+    the model axis."""
     device = consts.tracing_nus.device
     with _stage(timings, "plasma_and_lines", device):
         temps, n_elem = (x[m0:m1] if torch.is_tensor(x)
@@ -297,8 +327,8 @@ def _stage1(plan, batch, m0, m1, consts, dtype, timings=None):
                          for x in (batch.temperatures, batch.n_elem))
         rows = batch.molecule_rows and tuple(
             torch.as_tensor(x[m0:m1], device=device).to(dtype) for x in batch.molecule_rows)
-        state, quants = stage_plasma_and_lines(plan, temps.to(device, dtype),
-                                               n_elem.to(device, dtype), consts, rows)
+        state, quants = stage1(plan, temps.to(device, dtype), n_elem.to(device, dtype),
+                               consts, rows)
     with _stage(timings, "validate", device):
         validate_line_quants(quants)
     return state, quants

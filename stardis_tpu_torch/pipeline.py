@@ -11,7 +11,8 @@ The port of ``stardis_tpu/pipeline.py``, single device:
    for the "atomic" and "molecular" line sets, for a batch of models in
    one pass (its B models folded into B * D depth columns); on the card
    ``CapturedStage1`` keeps it as a CUDA graph that batches and services
-   replay.
+   replay, and under autograd ``CapturedStage1Grad`` keeps its forward
+   and backward as two graphs that the stage itself replays.
 3. ``validate_line_quants`` — one finiteness flag, one host sync.
 4. ``spectrum_batch`` — for a batch of models: continuum (one pass over
    the B * D columns), line
@@ -522,9 +523,34 @@ def stage_plasma_and_lines(plan: SimulationPlan, temps, n_elem, consts, molecule
     vectorised loops (which round a tail of columns otherwise, in another
     order), and a model's results have the same bits in any batch.  The
     molecular rows are folded into the same columns.
+
+    On one CUDA device with autograd on and an input that requires grad
+    (outside a capture of the current stream, and without anomaly
+    detection, whose checks read the device), the stage replays its
+    forward and backward from CUDA graphs captured for these inputs
+    (``CapturedStage1Grad``, under the span "plasma_and_lines"): the same
+    operations on the same inputs, so the same bits.  Everywhere else it
+    runs eagerly.
     """
-    single = temps.ndim == 1
-    if single:
+    inputs = (temps, n_elem, *(molecule_rows or ()))
+    if not _replays_grad_graph(inputs, consts):
+        return _stage_plasma_and_lines(plan, temps, n_elem, consts, molecule_rows)
+    with span("plasma_and_lines"):
+        entry = captured_stage1_grad(plan, consts, inputs)
+        state, quants = _unflatten(_Stage1GradReplay.apply(entry, *inputs), entry.keys)
+    return _model_views(state, quants, temps)
+
+
+def _stage_plasma_and_lines(plan, temps, n_elem, consts, molecule_rows=None):
+    """``stage_plasma_and_lines`` run eagerly, op by op."""
+    return _model_views(*_stage1_columns(plan, temps, n_elem, consts, molecule_rows), temps)
+
+
+def _stage1_columns(plan, temps, n_elem, consts, molecule_rows):
+    """Stage 1 in the layout it solves in: (state, quants) as
+    ``stage_plasma_and_lines`` returns them, each field a plane over the
+    padded B * D depth columns."""
+    if temps.ndim == 1:
         temps, n_elem = temps[None], n_elem[None]
         if molecule_rows is not None:
             molecule_rows = tuple(x[None] for x in molecule_rows)
@@ -532,8 +558,7 @@ def stage_plasma_and_lines(plan: SimulationPlan, temps, n_elem, consts, molecule
     # model-major columns: column b * D + d is depth d of model b, padded
     # with copies of the last one to a multiple of COLUMN_BLOCK
     t = temps.reshape(-1)
-    n_cols = t.shape[0]
-    cols = padded_columns(n_cols, t.device)
+    cols = padded_columns(t.shape[0], t.device)
     t = t[cols]
     state = solve_lte(t, _fold_columns(n_elem, cols), consts.tables)
     quants = {}
@@ -567,6 +592,14 @@ def stage_plasma_and_lines(plan: SimulationPlan, temps, n_elem, consts, molecule
             plan.broadening_flags,
             coupled=plan.molecules_coupled,
         )
+    return state, quants
+
+
+def _model_views(state, quants, temps):
+    """Stage 1's planes over the padded columns as the models' views:
+    [B, ...], or without the model axis for 1-D ``temps``."""
+    single = temps.ndim == 1
+    n_models, n_cols = 1 if single else temps.shape[0], temps.numel()
     state = PlasmaState(*(_split_models(x[..., :n_cols], n_models) for x in state))
     quants = {key: tuple(_split_models(x[..., :n_cols], n_models) for x in triple)
               for key, triple in quants.items()}
@@ -576,9 +609,61 @@ def stage_plasma_and_lines(plan: SimulationPlan, temps, n_elem, consts, molecule
     return state, (quants or None)
 
 
+def _flatten(state, quants):
+    """(state, quants) -> (the list of their tensors, the line-set keys)."""
+    return [*state, *(x for triple in quants.values() for x in triple)], tuple(quants)
+
+
+def _unflatten(tensors, keys):
+    n = len(PlasmaState._fields)
+    state = PlasmaState(*tensors[:n])
+    return state, {key: tuple(tensors[n + 3 * i:n + 3 * i + 3]) for i, key in enumerate(keys)}
+
+
+def _replays_grad_graph(inputs, consts):
+    """Whether ``stage_plasma_and_lines`` on ``inputs`` (temps, n_elem and
+    the molecular rows) replays a CapturedStage1Grad: autograd on, an
+    input that requires grad, every input and the constants on one CUDA
+    device, no capture under way on its current stream, no anomaly
+    detection."""
+    if not torch.is_grad_enabled() or torch.is_anomaly_enabled():
+        return False
+    if not all(torch.is_tensor(x) for x in inputs) or not any(x.requires_grad for x in inputs):
+        return False
+    device = inputs[0].device
+    if device.type != "cuda" or consts.tracing_nus.device != device:
+        return False
+    if any(x.device != device for x in inputs):
+        return False
+    with torch.cuda.device(device):
+        return not torch.cuda.is_current_stream_capturing()
+
+
 #: warm-up calls of stage 1 on a side stream before a capture, as
 #: PyTorch's CUDA-graph documentation asks
 CAPTURE_WARMUP = 3
+
+
+def _warm_up(step):
+    """``step()`` CAPTURE_WARMUP times on a side stream, ordered after the
+    current stream's work and before its next."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(CAPTURE_WARMUP):
+            step()
+    torch.cuda.current_stream().wait_stream(side)
+
+
+def _pool_bytes(graph):
+    """(bytes, free bytes) of a captured graph's private memory pool, read
+    from one ``torch.cuda.memory_snapshot()``: the free blocks are those
+    no tensor holds, which no other allocation can use."""
+    pool = tuple(graph.pool())
+    segments = [seg for seg in torch.cuda.memory_snapshot()
+                if tuple(seg.get("segment_pool_id", ())) == pool]
+    return (sum(seg["total_size"] for seg in segments),
+            sum(seg["total_size"] - seg["allocated_size"] for seg in segments))
 
 
 class CapturedStage1:
@@ -598,8 +683,8 @@ class CapturedStage1:
     can replay.  The capture registers its pool with the memory model
     (``util.memory.register_pool``) for as long as it lives.  A failed
     capture or replay raises; nothing falls back to the eager stage.  CUDA
-    only, and without autograd: a differentiated run calls
-    ``stage_plasma_and_lines`` itself.  ``captures`` and ``replays`` count
+    only, and without autograd: a differentiated stage 1 replays its own
+    graphs (``CapturedStage1Grad``).  ``captures`` and ``replays`` count
     both in the process (``util.profiling.counters``)."""
 
     captures = 0
@@ -627,27 +712,17 @@ class CapturedStage1:
                 for x in (mt.k_density, mt.partition_function))
         self._lock = threading.Lock()
         with torch.no_grad(), torch.cuda.device(device):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                for _ in range(CAPTURE_WARMUP):
-                    stage_plasma_and_lines(plan, self._temps, self._n_elem, consts,
-                                           self._rows)
-            torch.cuda.current_stream().wait_stream(side)
+            _warm_up(lambda: _stage_plasma_and_lines(plan, self._temps, self._n_elem, consts,
+                                                     self._rows))
             self._graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self._graph, capture_error_mode="thread_local"):
-                self._out = stage_plasma_and_lines(plan, self._temps, self._n_elem, consts,
-                                                   self._rows)
+                self._out = _stage_plasma_and_lines(plan, self._temps, self._n_elem, consts,
+                                                    self._rows)
             torch.cuda.synchronize()
-        pool = tuple(self._graph.pool())
-        segments = [seg for seg in torch.cuda.memory_snapshot()
-                    if tuple(seg.get("segment_pool_id", ())) == pool]
         self.device = device
-        self.pool_bytes = sum(seg["total_size"] for seg in segments)
-        # the pool's blocks that no tensor holds; a replay allocates nothing
-        # and the outputs stay held, so both counts hold while the graph lives
-        self.pool_free_bytes = sum(seg["total_size"] - seg["allocated_size"]
-                                   for seg in segments)
+        # the pool's free blocks: a replay allocates nothing and the outputs
+        # stay held, so both counts hold while the graph lives
+        self.pool_bytes, self.pool_free_bytes = _pool_bytes(self._graph)
         memory.register_pool(self)
         _cuda.count(CapturedStage1, "captures")
 
@@ -672,6 +747,172 @@ class CapturedStage1:
                 self._graph.replay()
                 _cuda.count(CapturedStage1, "replays")
             yield self._out
+
+
+class CapturedStage1Grad:
+    """``stage_plasma_and_lines`` under autograd, its forward and its
+    backward captured once in two CUDA graphs that share one private
+    memory pool, and replayed through one ``torch.autograd.Function``:
+    a differentiated stage 1 (a gradient fit's step, ``run_batch`` on
+    temperatures that require grad) launches two graphs where it
+    dispatched its operations, and their backward, one by one.
+
+    ``stage_plasma_and_lines`` captures one for each (plan, device
+    constants, the inputs' shapes and dtypes, which of them require grad,
+    molecular rows or none, device) on its first differentiated call on
+    the card (``captured_stage1_grad``; at most STAGE1_GRAD_CACHE_LIMIT
+    live, as each pins its pool).  The graphs read the constants and
+    static input buffers; the forward graph writes the planes of
+    ``_stage1_columns`` and what its backward reads, and the backward
+    graph (``torch.autograd.grad`` with the graph retained, so that it
+    can run more than once) the gradients of the inputs that require
+    grad.  A forward replay copies the inputs in and hands back copies of
+    the planes, with their shapes and strides, which the caller owns and
+    the next replay leaves alone.  A backward replays its graph while no
+    later forward has replayed over what it reads; one that comes later
+    (two forwards, then their backwards) runs its own forward again
+    eagerly from its saved inputs and differentiates that.  The copies
+    and replays run on the caller's current stream; a lock orders the
+    replays of several threads.
+
+    The mesh paths (``parallel.sharding``: one host thread per device,
+    device constants built per call) keep the eager stage.  The capture
+    registers its pool with the memory model (``util.memory
+    .register_pool``) for as long as it lives.  ``captures``, ``replays``
+    (forward replays) and ``stale_backwards`` (backwards run again
+    eagerly) count in the process (``util.profiling.counters``)."""
+
+    captures = 0
+    replays = 0
+    stale_backwards = 0
+
+    def __init__(self, plan: SimulationPlan, consts: DeviceConstants, inputs):
+        device = inputs[0].device
+        self.plan, self.consts, self.device = plan, consts, device
+        self._requires = tuple(x.requires_grad for x in inputs)
+        self._lock = threading.Lock()
+        self._generation = 0
+        with torch.cuda.device(device), torch.enable_grad():
+            # static inputs, allocated before the capture; the warm-up runs
+            # on the caller's inputs
+            self._inputs = tuple(
+                torch.empty(x.shape, dtype=x.dtype, device=device).copy_(x.detach())
+                .requires_grad_(r) for x, r in zip(inputs, self._requires))
+            wrt = [x for x in self._inputs if x.requires_grad]
+
+            def forward_and_backward():
+                outputs = [o for o in self._planes(self._inputs)[0] if o.requires_grad]
+                torch.autograd.grad(outputs, wrt, [torch.zeros_like(o) for o in outputs],
+                                    allow_unused=True)
+
+            _warm_up(forward_and_backward)
+            fwd, bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+            with torch.cuda.graph(fwd, capture_error_mode="thread_local"):
+                planes, self.keys = self._planes(self._inputs)
+            self.differentiable = tuple(o.requires_grad for o in planes)
+            diff = [o for o in planes if o.requires_grad]
+            self._grad_outputs = tuple(torch.empty_like(o) for o in diff)
+            with torch.cuda.graph(bwd, pool=fwd.pool(), capture_error_mode="thread_local"):
+                grads = iter(torch.autograd.grad(diff, wrt, self._grad_outputs,
+                                                 retain_graph=True, allow_unused=True))
+            torch.cuda.synchronize()
+        self._grad_inputs = tuple(next(grads) if r else None for r in self._requires)
+        # the outputs without the capture's autograd graph, which goes now:
+        # the blocks of what it saved stay in the pool, where the forward
+        # graph writes them and the backward graph reads them
+        self._outputs = tuple(o.detach() for o in planes)
+        del planes, diff
+        self._fwd, self._bwd = fwd, bwd
+        self.pool_bytes, self.pool_free_bytes = _pool_bytes(fwd)
+        memory.register_pool(self)
+        _cuda.count(CapturedStage1Grad, "captures")
+
+    def _planes(self, inputs):
+        """The eager stage's planes on ``inputs`` and its line-set keys."""
+        return _flatten(*_stage1_columns(self.plan, inputs[0], inputs[1], self.consts,
+                                         tuple(inputs[2:]) or None))
+
+    def forward(self, inputs):
+        """Replay the forward graph on ``inputs``: (copies of its outputs,
+        the replay's generation)."""
+        with self._lock:
+            for buf, x in zip(self._inputs, inputs):
+                buf.copy_(x)
+            self._fwd.replay()
+            self._generation += 1
+            _cuda.count(CapturedStage1Grad, "replays")
+            return [o.clone() for o in self._outputs], self._generation
+
+    def backward(self, generation, inputs, grads):
+        """The gradients of ``inputs`` (None where one does not require
+        grad) from ``grads``, those of the outputs of the forward replay
+        ``generation`` (None: zero), which ran on ``inputs``."""
+        with self._lock:
+            if generation == self._generation:
+                given = (g for g, d in zip(grads, self.differentiable) if d)
+                for buf, g in zip(self._grad_outputs, given):
+                    if g is None:
+                        buf.zero_()
+                    else:
+                        buf.copy_(g)
+                self._bwd.replay()
+                return tuple(None if g is None else g.clone() for g in self._grad_inputs)
+        _cuda.count(CapturedStage1Grad, "stale_backwards")
+        with torch.enable_grad():
+            leaves = tuple(x.detach().requires_grad_(r) for x, r in zip(inputs, self._requires))
+            pairs = [(o, g) for o, g in zip(self._planes(leaves)[0], grads)
+                     if g is not None and o.requires_grad]
+            wrt = [x for x in leaves if x.requires_grad]
+            got = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                           allow_unused=True) if pairs else [None] * len(wrt))
+        return tuple(next(got) if r else None for r in self._requires)
+
+
+class _Stage1GradReplay(torch.autograd.Function):
+    """A CapturedStage1Grad's replays as one node of the caller's autograd
+    graph: forward(entry, temps, n_elem, *molecule rows) -> copies of its
+    planes."""
+
+    @staticmethod
+    def forward(ctx, entry, *inputs):
+        outputs, ctx.generation = entry.forward(inputs)
+        ctx.entry = entry
+        ctx.save_for_backward(*inputs)
+        ctx.set_materialize_grads(False)
+        ctx.mark_non_differentiable(
+            *(o for o, d in zip(outputs, entry.differentiable) if not d))
+        return tuple(outputs)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *grads):
+        return (None, *ctx.entry.backward(ctx.generation, ctx.saved_tensors, grads))
+
+
+#: differentiated stage-1 graphs kept at once: each pins its memory pool
+#: (the planes, what the backward reads, the workspace of both)
+STAGE1_GRAD_CACHE_LIMIT = 4
+# (id(plan), id(consts), device, each input's shape, dtype and whether it
+# requires grad) -> CapturedStage1Grad.  The ids are safe keys: the entry
+# holds its plan and constants, so a live entry keeps them from being
+# reused; eviction drops the oldest entry, its graphs and its pool.
+_STAGE1_GRAD_CACHE = {}
+_GRAD_CACHE_LOCK = threading.Lock()
+
+
+def captured_stage1_grad(plan, consts, inputs) -> CapturedStage1Grad:
+    """The cached CapturedStage1Grad for ``inputs`` (temps, n_elem and the
+    molecular rows), captured on first use; creation is atomic, so
+    concurrent callers share one capture."""
+    key = (id(plan), id(consts), inputs[0].device,
+           tuple((tuple(x.shape), x.dtype, x.requires_grad) for x in inputs))
+    with _GRAD_CACHE_LOCK:
+        entry = _STAGE1_GRAD_CACHE.get(key)
+        if entry is None:
+            if len(_STAGE1_GRAD_CACHE) >= STAGE1_GRAD_CACHE_LIMIT:
+                _STAGE1_GRAD_CACHE.pop(next(iter(_STAGE1_GRAD_CACHE)))
+            entry = _STAGE1_GRAD_CACHE[key] = CapturedStage1Grad(plan, consts, inputs)
+    return entry
 
 
 def model_axis(states, line_quants=None):

@@ -144,15 +144,17 @@ def spans():
 
 def counters():
     """The program's counters, read where they are kept: stage-1 graph
-    captures and replays (``pipeline.CapturedStage1``), kernels built by
-    ``nvcc`` in this process (``_cuda.BUILD_LOGS``), the kernel wrappers'
-    launch counters, the continuum's file-opacity terms
+    captures and replays (``pipeline.CapturedStage1``), the differentiated
+    stage 1's captures, forward replays and backwards run again eagerly
+    because a later forward had replayed (``pipeline.CapturedStage1Grad``),
+    kernels built by ``nvcc`` in this process (``_cuda.BUILD_LOGS``), the
+    kernel wrappers' launch counters, the continuum's file-opacity terms
     (``pipeline.FileSigmaCounts``: tables expanded on the device from
     rows, dense sigma arrays copied to it), and the spans dropped this
     session.  After warm-up a capture or a build is work done again."""
     from .. import _cuda
     from ..opacities import line_kernel
-    from ..pipeline import CapturedStage1, FileSigmaCounts
+    from ..pipeline import CapturedStage1, CapturedStage1Grad, FileSigmaCounts
     from ..radiation_field import solver
 
     k1 = line_kernel.accumulate_line_opacity_cuda
@@ -161,6 +163,9 @@ def counters():
     return {
         "stage1_captures": CapturedStage1.captures,
         "stage1_replays": CapturedStage1.replays,
+        "stage1_grad_captures": CapturedStage1Grad.captures,
+        "stage1_grad_replays": CapturedStage1Grad.replays,
+        "stage1_grad_stale_backwards": CapturedStage1Grad.stale_backwards,
         "kernel_builds": len(_cuda.BUILD_LOGS),
         "line_opacity_launches": k1.launches,
         "line_opacity_range_launches": k1.range_launches,

@@ -589,22 +589,280 @@ def test_run_batch_replays_a_cached_graph(cuda, tmp_path):
     tbatch._STAGE1_CACHE.clear()
 
 
-def test_gradients_run_the_eager_stage(cuda, tmp_path, monkeypatch):
-    """Temperatures that require grad take the eager stage 1 (no graph is
-    captured or replayed) and carry a finite gradient."""
+@pytest.fixture
+def grad_graphs():
+    """The differentiated stage-1 graphs of one test: none before it, none
+    kept after it (each pins its pool, which the memory tests count)."""
+    from stardis_tpu_torch import pipeline as tpipe
+    from stardis_tpu_torch.parallel import batch as tbatch
+
+    tpipe._STAGE1_GRAD_CACHE.clear()
+    tbatch._GRAD_CONSTS.clear()
+    yield tpipe._STAGE1_GRAD_CACHE
+    tpipe._STAGE1_GRAD_CACHE.clear()
+    tbatch._GRAD_CONSTS.clear()
+
+
+def _giants_on_card(tmp_path, teffs=(3600.0, 4000.0, 4400.0)):
+    """(plan, BatchInputs) of spherical giants with pairwise molecules:
+    builtin:30 with synthetic VALD atomic and molecular lines, each
+    member's K(T) and U(T) rows, 56 depths, 500 pixels."""
+    from stardis_tpu_torch import units as u
+    from stardis_tpu_torch.atom_data import build_builtin_atom_data
+    from stardis_tpu_torch.base import parse_config_to_model, read_stellar_model
+    from stardis_tpu_torch.io.synthetic import write_marcs_file
+    from stardis_tpu_torch.opacities.lines import synth_linelist, synth_molecule_linelist
+    from stardis_tpu_torch.parallel.batch import make_batch
+
+    paths = []
+    for i, teff in enumerate(teffs):
+        paths.append(str(tmp_path / f"g{i}.mod"))
+        write_marcs_file(paths[-1], teff=teff, logg=2.0, spherical=True, radius_cm=1.152e12)
+    cfg = {
+        "stardis_config_version": 1.0,
+        "atom_data": "builtin:30",
+        "input_model": {"type": "marcs", "fname": paths[0], "final_atomic_number": 30},
+        "opacity": {"bf": {"H_I": {}}, "ff": {"H_I": {}}, "rayleigh": ["H", "H2"],
+                    "line": {"disable": False, "broadening": ["radiation", "van_der_waals"],
+                             "vald_linelist": {"use_linelist": True,
+                                               "use_vald_broadening": True},
+                             "include_molecules": True}},
+        "no_of_thetas": 10,
+    }
+    adata = build_builtin_atom_data(30, include_linelists=True, include_molecules=True)
+    synth_linelist(adata, 2000, 5879.0, 5906.0)
+    synth_molecule_linelist(adata, 1000, 5879.0, 5906.0)
+    config, adata, model0 = parse_config_to_model(cfg, atom_data=adata)
+    models = [model0] + [read_stellar_model(config, adata, p) for p in paths[1:]]
+    nus = u.Quantity(np.arange(5880.0, 5905.0, 0.05), u.AA).to(u.Hz, u.spectral()).value
+    return make_batch(config, adata, models, nus)
+
+
+def _grad_counts():
+    """(captures, forward replays, stale backwards) of the differentiated
+    stage 1."""
+    from stardis_tpu_torch.util import profiling
+
+    c = profiling.counters()
+    return [c["stage1_grad_captures"], c["stage1_grad_replays"],
+            c["stage1_grad_stale_backwards"]]
+
+
+def _scaled(temps, n_elem, dtype, device, scale):
+    """T s and n / s with s a tensor that requires grad, as a fit's step
+    makes them."""
+    s = torch.tensor(scale, dtype=dtype, device=device, requires_grad=True)
+    return (torch.as_tensor(temps, device=device).to(dtype) * s,
+            torch.as_tensor(n_elem, device=device).to(dtype) / s)
+
+
+def _line_loss(state, quants, seed=0):
+    """A weighted sum of alpha, gamma, doppler and n_e, the weights drawn
+    from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    used = [state.electron_densities] + [x for triple in quants.values() for x in triple]
+    return sum((x * torch.rand(x.shape, generator=gen, dtype=x.dtype).to(x.device)).sum()
+               for x in used)
+
+
+@pytest.mark.parametrize("case", ["one model", "molecule batch"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_differentiated_stage1_replays_the_eager_bits(cuda, tmp_path, grad_graphs, dtype,
+                                                      case):
+    """Stage 1 under autograd replays its forward and backward graphs: over
+    s = 1, 1.03, 0.97, 1 its outputs (bits and strides) and the gradients
+    of T s and n / s through a loss on alpha, gamma, doppler and n_e equal
+    the eager stage's bit for bit; one capture, a replay a call, no stale
+    backward, a pool of its own."""
+    from stardis_tpu_torch import pipeline as tpipe
+
+    if case == "one model":
+        plan, _batch = _batch_on_card(tmp_path)
+        temps0, n_elem0, rows = plan.temperatures, plan.n_elem, None
+    else:
+        plan, batch = _giants_on_card(tmp_path)
+        temps0, n_elem0 = batch.temperatures, batch.n_elem
+        rows = tuple(torch.as_tensor(x, device=cuda).to(dtype) for x in batch.molecule_rows)
+    consts = tpipe.device_constants(plan, dtype, cuda)
+    before = _grad_counts()
+    for scale in (1.0, 1.03, 0.97, 1.0):
+        runs = []
+        for stage in (tpipe._stage_plasma_and_lines, tpipe.stage_plasma_and_lines):
+            inputs = _scaled(temps0, n_elem0, dtype, cuda, scale)
+            state, quants = stage(plan, *inputs, consts, rows)
+            grads = torch.autograd.grad(_line_loss(state, quants), inputs)
+            runs.append((_stage1_tensors(state, quants), grads))
+        (eager, want), (replayed, got) = runs
+        assert all(torch.equal(a, b) and a.stride() == b.stride()
+                   for a, b in zip(replayed, eager)), scale
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), scale
+    assert _grad_counts() == [before[0] + 1, before[1] + 4, before[2]]
+    (entry,) = grad_graphs.values()
+    assert entry.pool_bytes > 0
+
+
+def test_stale_backwards_retained_graphs_and_hooks(cuda, tmp_path, grad_graphs):
+    """Two forwards, then their backwards in reverse order: each gradient is
+    its own forward's (the second backward runs its forward again, counted
+    once); a retained graph's two backwards give the same gradient; a hook
+    on the returned alpha receives the eager stage's gradient."""
+    from stardis_tpu_torch import pipeline as tpipe
+
+    plan, _batch = _batch_on_card(tmp_path)
+    dtype = torch.float32
+    consts = tpipe.device_constants(plan, dtype, cuda)
+
+    def run(scale, stage=tpipe.stage_plasma_and_lines):
+        inputs = _scaled(plan.temperatures, plan.n_elem, dtype, cuda, scale)
+        return inputs, stage(plan, *inputs, consts)
+
+    def eager_grads(scale):
+        inputs, out = run(scale, tpipe._stage_plasma_and_lines)
+        return torch.autograd.grad(_line_loss(*out), inputs)
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    run(1.0)  # the capture
+    (first, a), (second, b) = run(1.03), run(0.97)
+    before = _grad_counts()
+    g_second = torch.autograd.grad(_line_loss(*b), second)
+    g_first = torch.autograd.grad(_line_loss(*a), first)
+    assert equal(g_first, eager_grads(1.03)) and equal(g_second, eager_grads(0.97))
+    assert _grad_counts()[2] == before[2] + 1
+
+    inputs, out = run(1.0)
+    loss = _line_loss(*out)
+    once = torch.autograd.grad(loss, inputs, retain_graph=True)
+    twice = torch.autograd.grad(loss, inputs)
+    assert equal(once, twice) and equal(once, eager_grads(1.0))
+    assert _grad_counts()[2] == before[2] + 1
+
+    kept = {}
+    for name, stage in (("eager", tpipe._stage_plasma_and_lines),
+                        ("replayed", tpipe.stage_plasma_and_lines)):
+        inputs, (state, quants) = run(1.0, stage)
+        quants["atomic"][0].register_hook(lambda g, name=name: kept.__setitem__(name, g.clone()))
+        torch.autograd.grad(_line_loss(state, quants), inputs)
+    assert torch.equal(kept["eager"], kept["replayed"]) and kept["eager"].abs().amax() > 0
+
+
+def test_threads_share_one_capture(cuda, tmp_path, grad_graphs):
+    """Four threads step forward and backward at scales of their own
+    through one entry while the interpreter switches every 10 us: each
+    gradient is its own forward's, bit for bit, whichever backwards had to
+    run their forward again."""
+    import sys
+    import threading
+
+    from stardis_tpu_torch import pipeline as tpipe
+
+    plan, _batch = _batch_on_card(tmp_path)
+    dtype = torch.float32
+    consts = tpipe.device_constants(plan, dtype, cuda)
+    scales = (1.0, 1.01, 0.99, 1.02)
+
+    def grads(scale, stage=tpipe.stage_plasma_and_lines):
+        inputs = _scaled(plan.temperatures, plan.n_elem, dtype, cuda, scale)
+        return torch.autograd.grad(_line_loss(*stage(plan, *inputs, consts)), inputs)
+
+    want = {s: grads(s, tpipe._stage_plasma_and_lines) for s in scales}
+    grads(1.0)  # the capture
+    got, errors = {s: [] for s in scales}, []
+
+    def work(scale):
+        try:
+            for _ in range(5):
+                got[scale].append(grads(scale))
+        except Exception as exc:  # raised again below, in the test's thread
+            errors.append(exc)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(s,)) for s in scales]
+        for thread in threads:
+            thread.start()
+        for thread in threads:
+            thread.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(thread.is_alive() for thread in threads)
+    if errors:
+        raise errors[0]
+    for s in scales:
+        assert len(got[s]) == 5
+        assert all(torch.equal(a, b) for g in got[s] for a, b in zip(g, want[s])), s
+
+
+def test_gradients_replay_the_grad_graph(cuda, tmp_path, monkeypatch, grad_graphs):
+    """Temperatures that require grad: run_batch captures no forward-only
+    graph; its stage 1 replays the differentiated graphs (one capture, one
+    replay a call, the second call on the same constants), and F_nu and
+    the gradient equal the eager stage's through the same spectrum bit for
+    bit."""
     import dataclasses
 
+    from stardis_tpu_torch import pipeline as tpipe
     from stardis_tpu_torch.parallel import batch as tbatch
 
     def refuse(*args, **kwargs):
-        raise AssertionError("a differentiated run asked for a captured stage 1")
+        raise AssertionError("a differentiated run asked for a forward-only stage 1")
 
     monkeypatch.setattr(tbatch, "captured_stage1", refuse)
     plan, batch = _batch_on_card(tmp_path)
+    before = _grad_counts()
+    runs = []
+    for _ in range(2):
+        temps = torch.as_tensor(batch.temperatures, device=cuda).float().requires_grad_()
+        f_nu = tbatch.run_batch(plan, dataclasses.replace(batch, temperatures=temps))
+        f_nu[:, -1].sum().backward()
+        runs.append((f_nu.detach(), temps.grad))
+    assert _grad_counts() == [before[0] + 1, before[1] + 2, before[2]]
+
+    consts = tpipe.device_constants(plan, torch.float32, cuda)
     temps = torch.as_tensor(batch.temperatures, device=cuda).float().requires_grad_()
-    f_nu = tbatch.run_batch(plan, dataclasses.replace(batch, temperatures=temps))
+    state, quants = tpipe._stage_plasma_and_lines(
+        plan, temps, torch.as_tensor(batch.n_elem, device=cuda).float(), consts)
+    lines = tpipe.prepare_lines(plan, state, quants, consts)
+    f_nu = tpipe.spectrum_batch(plan, state, lines, consts, batch.ray_distances)[0]
     f_nu[:, -1].sum().backward()
     assert torch.isfinite(temps.grad).all() and (temps.grad.abs().amax(dim=1) > 0).all()
+    for got, grad in runs:
+        assert torch.equal(got, f_nu.detach()) and torch.equal(grad, temps.grad)
+
+
+def test_grad_graph_pools_enter_the_memory_model(cuda, tmp_path, grad_graphs):
+    """A differentiated capture's pool is positive, registered while its
+    entry lives, and leaves the registry with the entry when
+    STAGE1_GRAD_CACHE_LIMIT later captures evict it."""
+    import weakref
+
+    from stardis_tpu_torch import pipeline as tpipe
+    from stardis_tpu_torch.util import memory as mem
+
+    plan, batch = _batch_on_card(tmp_path)
+    consts = tpipe.device_constants(plan, torch.float32, cuda)
+
+    def forward(n_models):
+        members = [i % len(batch.temperatures) for i in range(n_models)]
+        inputs = _scaled(batch.temperatures[members], batch.n_elem[members], torch.float32,
+                         cuda, 1.0)
+        tpipe.stage_plasma_and_lines(plan, *inputs, consts)
+
+    forward(1)
+    (entry,) = grad_graphs.values()
+    assert entry.pool_bytes > 0 and 0 <= entry.pool_free_bytes <= entry.pool_bytes
+    assert entry in mem.resident_pools(entry.device)
+    first = weakref.ref(entry)
+    del entry
+    for n_models in range(2, 2 + tpipe.STAGE1_GRAD_CACHE_LIMIT):
+        forward(n_models)
+    assert first() is None
+    assert len(grad_graphs) == tpipe.STAGE1_GRAD_CACHE_LIMIT
+    assert sorted(map(id, (p for p in mem.resident_pools(torch.device(cuda.type, 0))
+                           if isinstance(p, tpipe.CapturedStage1Grad)))) == sorted(
+        map(id, grad_graphs.values()))
 
 
 def test_captured_pools_enter_the_memory_model(cuda, tmp_path, monkeypatch):

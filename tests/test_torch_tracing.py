@@ -330,11 +330,14 @@ def test_span_buffer_is_bounded_and_counts_what_it_drops(monkeypatch):
 def test_counters_read_where_the_work_happens():
     from stardis_tpu_torch import _cuda
     from stardis_tpu_torch.opacities import line_kernel
-    from stardis_tpu_torch.pipeline import CapturedStage1
+    from stardis_tpu_torch.pipeline import CapturedStage1, CapturedStage1Grad
 
     c = profiling.counters()
     assert c["stage1_captures"] == CapturedStage1.captures
     assert c["stage1_replays"] == CapturedStage1.replays
+    assert c["stage1_grad_captures"] == CapturedStage1Grad.captures
+    assert c["stage1_grad_replays"] == CapturedStage1Grad.replays
+    assert c["stage1_grad_stale_backwards"] == CapturedStage1Grad.stale_backwards
     assert c["kernel_builds"] == len(_cuda.BUILD_LOGS)
     assert c["line_opacity_launches"] == line_kernel.accumulate_line_opacity_cuda.launches
     assert all(isinstance(v, int) for v in c.values())
